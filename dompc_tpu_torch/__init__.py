@@ -29,5 +29,6 @@ from . import optimizer  # noqa: E402
 from . import solver  # noqa: E402
 from . import controller  # noqa: E402
 from . import systems  # noqa: E402
+from . import parallel  # noqa: E402
 
 __version__ = "0.1.0"

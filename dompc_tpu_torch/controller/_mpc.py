@@ -6,9 +6,12 @@ collocation transcription, scenario tree, scaling, soft constraints and
 cost weighting, assembled as tensor functions whose per-(stage, scenario,
 branch) structure is gather-index arrays + ``torch.func.vmap``; all
 derivatives are instance-local ``torch.func`` transforms scattered into the
-global arrays.  The NLP is solved by :mod:`dompc_tpu_torch.solver.ipm` with
-the condensed bordered-block-diagonal KKT backend, whose chain sweep is the
-CUDA band-QR kernel on the card.
+global arrays.  The oracles and both structured KKT backends take a leading
+batch axis (B problem instances; the oracles also take one instance's
+vectors).  The NLP is solved by the batch-first
+:mod:`dompc_tpu_torch.solver.ipm` with the condensed bordered-block-diagonal
+KKT backend, whose chain sweep is a CUDA band kernel on the card;
+``make_step`` solves a batch of one, ``parallel.make_batch_solver`` many.
 
 Device and dtype are read from the environment at ``setup()``
 (``DOMPC_TPU_PLATFORM=cpu`` for the CPU, else CUDA; ``DOMPC_TPU_X64=1`` for
@@ -35,7 +38,7 @@ from ..tools._optxview import make_mpc_resolver
 from ..data import MPCData
 from ..solver.ipm import make_ipm_solver, ipm_settings_from
 from ..solver.bbd import (BBDAssembler, CondensedAssembler, bbd_solve,
-                          demote_by_usage, ROOT)
+                          band_backend, demote_by_usage, ROOT)
 from .. import sym as casym
 from ._controllersettings import MPCSettings
 
@@ -81,6 +84,16 @@ class _PTemplate:
 
 def _idx(a, device):
     return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+
+
+def _any_batch(fn):
+    """An oracle over a batch ((B, n), (B, n_p), ...) that also takes one
+    instance's vectors, the JAX package's per-instance signature."""
+    def wrapped(w, pvec, *rest):
+        if w.ndim == 1:
+            return fn(w[None], pvec[None], *[r[None] for r in rest])[0]
+        return fn(w, pvec, *rest)
+    return wrapped
 
 
 class MPC(Optimizer, IteratedVariables):
@@ -558,69 +571,81 @@ class MPC(Optimizer, IteratedVariables):
         R_h_t = _idx(R_h, dev)
         vmap = torch.func.vmap
 
-        def ext(w, pvec):
+        def gather(w, pvec):
+            """Instance inputs of a batch (B, n), (B, n_p), flattened
+            batch-major into B*I instances for one ``vmap``."""
+            B = w.shape[0]
             parts = [w]
             if n_u:
-                parts.append(pvec[uprev_sl] / us)
-            parts.append(w.new_zeros((1,)))
-            return torch.cat(parts)
+                parts.append(pvec[:, uprev_sl] / us)
+            parts.append(w.new_zeros((B, 1)))
+            V = torch.cat(parts, dim=1)[:, A_all_t]
 
-        def gather(w, pvec):
-            V = ext(w, pvec)[A_all_t]
-            return V, pvec[TVP], pvec[tvpN_idx], pvec[PIDX]
+            def fl(x):
+                return x.reshape((B * I,) + x.shape[2:])
+            return (fl(V), fl(pvec[:, TVP]),
+                    pvec[:, tvpN_idx].repeat_interleave(I, dim=0),
+                    fl(pvec[:, PIDX]), omega.repeat(B),
+                    term_mask_f.repeat(B))
 
         # ---- value functions ----
-        obj_dims = (0, 0, None, 0, 0, 0)
-
         def f(w, pvec):
-            V, tvp, tvpN, p = gather(w, pvec)
-            vals = vmap(obj_i, in_dims=obj_dims)(V, tvp, tvpN, p, omega,
-                                                 term_mask_f)
-            return torch.sum(vals)
+            vals = vmap(obj_i)(*gather(w, pvec))
+            return vals.reshape(w.shape[0], I).sum(1)
 
         def g(w, pvec):
-            V, tvp, tvpN, p = gather(w, pvec)
-            init = w[node00_t] - pvec[x0_sl] / xs
+            V, tvp, _, p, _, _ = gather(w, pvec)
+            init = w[:, node00_t] - pvec[:, x0_sl] / xs
             res = vmap(g_i)(V, tvp, p)
-            return torch.cat([init, res.reshape(-1)])
+            return torch.cat([init, res.reshape(w.shape[0], -1)], dim=1)
 
         def h(w, pvec):
             if q_ineq == 0:
-                return w.new_zeros((0,))
-            V, tvp, tvpN, p = gather(w, pvec)
-            return vmap(h_i)(V, tvp, p).reshape(-1)
+                return w.new_zeros((w.shape[0], 0))
+            V, tvp, _, p, _, _ = gather(w, pvec)
+            return vmap(h_i)(V, tvp, p).reshape(w.shape[0], -1)
 
         # ---- derivative oracles (instance-local AD + scatter) ----
+        # reverse mode throughout: in eager PyTorch on the CPU the
+        # instance Jacobians and Hessians by jacrev (and jacrev of jacrev)
+        # take 1/5 to 1/6 of the time of jacfwd (and jacfwd of jacrev, the
+        # JAX package's hessian), with the same values to roundoff
+        jacrev = torch.func.jacrev
         d_obj = torch.func.grad(obj_i)
-        d_g = torch.func.jacfwd(g_i)
-        d_h = torch.func.jacfwd(h_i) if nlr else None
+        d_g = jacrev(g_i)
+        d_h = jacrev(h_i) if nlr else None
 
         def grad_f(w, pvec):
-            V, tvp, tvpN, p = gather(w, pvec)
-            G = vmap(d_obj, in_dims=obj_dims)(V, tvp, tvpN, p, omega,
-                                              term_mask_f)
-            out = w.new_zeros((n_ext,)).index_add(0, A_all_flat,
-                                                  G.reshape(-1))
-            return out[:n]
+            B = w.shape[0]
+            G = vmap(d_obj)(*gather(w, pvec))
+            out = w.new_zeros((B, n_ext)).index_add(1, A_all_flat,
+                                                    G.reshape(B, -1))
+            return out[:, :n]
 
         init_row = torch.arange(n_x, device=dev)
 
-        def jac_g(w, pvec):
-            V, tvp, tvpN, p = gather(w, pvec)
-            Ji = vmap(d_g)(V, tvp, p)           # (I, E, d)
-            J = w.new_zeros((m_eq, n_ext))
-            J[init_row, node00_t] = 1.0
-            J.index_put_((R_g_t[:, :, None], A_all_t[:, None, :]), Ji,
+        def scatter_rows(w, Ji, R_t, rows):
+            """Scatter-add instance Jacobians (B*I, r, d) into (B, rows,
+            n)."""
+            B = w.shape[0]
+            b_idx = torch.arange(B, device=dev)[:, None, None, None]
+            J = w.new_zeros((B, rows, n_ext))
+            J.index_put_((b_idx, R_t[None, :, :, None],
+                          A_all_t[None, :, None, :]),
+                         Ji.reshape((B,) + R_t.shape + (d,)),
                          accumulate=True)
-            return J[:, :n]
+            return J
+
+        def jac_g(w, pvec):
+            V, tvp, _, p, _, _ = gather(w, pvec)
+            J = scatter_rows(w, vmap(d_g)(V, tvp, p), R_g_t, m_eq)
+            J[:, init_row, node00_t] = 1.0
+            return J[:, :, :n]
 
         def jac_h(w, pvec):
-            V, tvp, tvpN, p = gather(w, pvec)
-            Ji = vmap(d_h)(V, tvp, p)           # (I, nlr, d)
-            J = w.new_zeros((q_ineq, n_ext))
-            J.index_put_((R_h_t[:, :, None], A_all_t[:, None, :]), Ji,
-                         accumulate=True)
-            return J[:, :n]
+            V, tvp, _, p, _, _ = gather(w, pvec)
+            return scatter_rows(w, vmap(d_h)(V, tvp, p), R_h_t,
+                                q_ineq)[:, :, :n]
 
         def lag_i(v, tvp, tvpN, p, om, tmask, lam_gi, lam_hi):
             val = obj_i(v, tvp, tvpN, p, om, tmask)
@@ -629,30 +654,35 @@ class MPC(Optimizer, IteratedVariables):
                 val = val + torch.dot(lam_hi, h_i(v, tvp, p))
             return val
 
-        d2_lag = torch.func.hessian(lag_i)
-        lag_dims = (0, 0, None, 0, 0, 0, 0, 0)
+        d2_lag = jacrev(jacrev(lag_i))
+
+        def inst_multipliers(lam_g, lam_h):
+            """Per-instance multipliers (B*I, E), (B*I, nlr)."""
+            Lg = lam_g[:, R_g_t].reshape(-1, E)
+            Lh = lam_h[:, R_h_t].reshape(-1, nlr) if nlr \
+                else lam_g.new_zeros((lam_g.shape[0] * I, 0))
+            return Lg, Lh
 
         def hess_fn(w, pvec, lam_g, lam_h):
-            V, tvp, tvpN, p = gather(w, pvec)
-            Lg = lam_g[R_g_t]
-            Lh = lam_h[R_h_t] if nlr else w.new_zeros((I, 0))
-            Hi = vmap(d2_lag, in_dims=lag_dims)(
-                V, tvp, tvpN, p, omega, term_mask_f, Lg, Lh)  # (I, d, d)
-            H = w.new_zeros((n_ext, n_ext))
-            H.index_put_((A_all_t[:, :, None], A_all_t[:, None, :]), Hi,
-                         accumulate=True)
-            return H[:n, :n]
+            B = w.shape[0]
+            Hi = vmap(d2_lag)(*gather(w, pvec),
+                              *inst_multipliers(lam_g, lam_h))
+            b_idx = torch.arange(B, device=dev)[:, None, None, None]
+            H = w.new_zeros((B, n_ext, n_ext))
+            H.index_put_((b_idx, A_all_t[None, :, :, None],
+                          A_all_t[None, :, None, :]),
+                         Hi.reshape(B, I, d, d), accumulate=True)
+            return H[:, :n, :n]
 
-        self._f_fn, self._g_fn, self._h_fn = f, g, h
-        self._grad_f_fn, self._jac_g_fn, self._jac_h_fn = (grad_f, jac_g,
-                                                           jac_h)
-        self._hess_fn = hess_fn
+        self._f_fn, self._g_fn, self._h_fn = map(_any_batch, (f, g, h))
+        self._grad_f_fn, self._jac_g_fn, self._jac_h_fn = map(
+            _any_batch, (grad_f, jac_g, jac_h))
+        self._hess_fn = _any_batch(hess_fn)
         self._rows_per_inst = E
         self._nl_rows_per_inst = nlr
         self._struct_parts = dict(
-            gather=gather, d_g=d_g, d_h=d_h, d2_lag=d2_lag, R_g_t=R_g_t,
-            R_h_t=R_h_t, omega=omega, term_mask_f=term_mask_f, nlr=nlr,
-            I=I, d=d, R_g=R_g, R_h=R_h, lag_dims=lag_dims,
+            gather=gather, inst_multipliers=inst_multipliers, d_g=d_g,
+            d_h=d_h, d2_lag=d2_lag, nlr=nlr, I=I, d=d, R_g=R_g, R_h=R_h,
             lag_i=lag_i, g_i=g_i, h_i=(h_i if nlr else None))
 
         # sizes
@@ -823,44 +853,34 @@ class MPC(Optimizer, IteratedVariables):
         return (var_chain, var_stage, g_chain, g_stage, h_chain, h_stage,
                 init_cols)
 
-    def _make_stage_derivs(self):
-        """Per-instance derivative oracle (Hi, Jg_i, Jh_i) for the KKT
-        backends: three independent vmapped transforms (the JAX package's
-        default, unfused form)."""
-        sp = self._struct_parts
-        d_g, d_h, d2_lag = sp["d_g"], sp["d_h"], sp["d2_lag"]
-        nlr, I, d = sp["nlr"], sp["I"], sp["d"]
-        vmap = torch.func.vmap
-
-        def stage_derivs(V, tvp, tvpN, p, omega, term_mask, Lg, Lh):
-            Hi = vmap(d2_lag, in_dims=sp["lag_dims"])(
-                V, tvp, tvpN, p, omega, term_mask, Lg, Lh)
-            Jg_i = vmap(d_g)(V, tvp, p)
-            Jh_i = vmap(d_h)(V, tvp, p) if nlr else V.new_zeros((I, 0, d))
-            return Hi, Jg_i, Jh_i
-        return stage_derivs
-
     def _prepare_fn(self):
         """``prepare(w, pvec, lam_g, lam_h, sig_w, inv_sig_s)`` of both
-        structured backends: instance derivatives at the current point."""
+        structured backends: instance derivatives at the current points of
+        a batch, ``Hi`` (B, I, d, d), ``Jg_i`` (B, I, E, d), ``Jh_i`` (B,
+        I, nlr, d), from three independent vmapped transforms over the B*I
+        instances (the JAX package's default, unfused form)."""
         sp = self._struct_parts
-        gather, nlr, I = sp["gather"], sp["nlr"], sp["I"]
-        stage_derivs = self._make_stage_derivs()
+        gather, nlr, I, d = sp["gather"], sp["nlr"], sp["I"], sp["d"]
+        d_g, d_h, d2_lag = sp["d_g"], sp["d_h"], sp["d2_lag"]
+        vmap = torch.func.vmap
 
         def prepare(w, pvec, lam_g, lam_h, sig_w, inv_sig_s):
-            V, tvp, tvpN, p = gather(w, pvec)
-            Lg = lam_g[sp["R_g_t"]]
-            Lh = lam_h[sp["R_h_t"]] if nlr else w.new_zeros((I, 0))
-            return stage_derivs(V, tvp, tvpN, p, sp["omega"],
-                                sp["term_mask_f"], Lg, Lh) \
-                + (sig_w, inv_sig_s)
+            B = w.shape[0]
+            V, tvp, tvpN, p, om, tm = gather(w, pvec)
+            Hi = vmap(d2_lag)(V, tvp, tvpN, p, om, tm,
+                              *sp["inst_multipliers"](lam_g, lam_h))
+            Jg_i = vmap(d_g)(V, tvp, p)
+            Jh_i = vmap(d_h)(V, tvp, p) if nlr else V.new_zeros((B * I, 0, d))
+            return tuple(x.reshape((B, I) + x.shape[1:])
+                         for x in (Hi, Jg_i, Jh_i)) + (sig_w, inv_sig_s)
         return prepare
 
     def _make_structured_solve(self, delta_cons, n_refine=1):
         """Uncondensed structured KKT backend: instance derivative tensors
         are gathered into per-scenario-chain band blocks plus a root border
         and solved by the band sweep with a Schur complement on the root
-        (solver/bbd.py)."""
+        (solver/bbd.py).  Works on (B, ...) batches; the band backend is
+        chosen here, once (``DOMPC_TPU_BAND_BACKEND``)."""
         sp = self._struct_parts
         chains = self._chain_assignment()
         assembler = BBDAssembler(
@@ -871,25 +891,27 @@ class MPC(Optimizer, IteratedVariables):
         mask_c = self._tensor(assembler.w_mask_chain)
         mask_r = self._tensor(assembler.w_mask_root)
         prepare_derivs = self._prepare_fn()
+        backend = band_backend(self._dtype, self._device)
 
         def prepare(w, pvec, lam_g, lam_h, sig_w, inv_sig_s):
             Hi, Jg_i, Jh_i, _, _ = prepare_derivs(w, pvec, lam_g, lam_h,
                                                   sig_w, inv_sig_s)
             return assembler.assemble(
-                Hi, Jg_i, Jh_i, sig_w, -delta_cons * w.new_ones((m,)),
+                Hi, Jg_i, Jh_i, sig_w,
+                -delta_cons * w.new_ones((w.shape[0], m)),
                 -inv_sig_s - delta_cons)
 
         def solve(ctx, r_dw, r_g, r_h_mod, delta):
             D, U, Lo, Bord, Root = ctx
-            D = D + torch.diag_embed(delta * mask_c)
+            D = D + torch.diag_embed(delta[:, None, None, None] * mask_c)
             if assembler.R:
-                Root = Root + torch.diag(delta * mask_r)
+                Root = Root + torch.diag_embed(delta[:, None] * mask_r)
             rhs_c, rhs_r = assembler.pack_rhs(-r_dw, -r_g, -r_h_mod)
             # float32 takes no refinement pass (the IPM's inexact-Newton
             # acceptance absorbs the rest); float64 takes n_refine
             n_ref = 0 if r_dw.dtype == torch.float32 else n_refine
             x_c, x_r = bbd_solve(D, U, Lo, Bord, Root, rhs_c, rhs_r,
-                                 n_refine=n_ref)
+                                 n_refine=n_ref, backend=backend)
             return assembler.unpack_sol(x_c, x_r)
 
         return prepare, solve
@@ -996,78 +1018,84 @@ class MPC(Optimizer, IteratedVariables):
         R_h_flat = _idx(R_h.reshape(-1), dev) if nlr else None
         prepare = self._prepare_fn()
 
-        def solve(ctx, r_dw, r_g, r_h_mod, delta):
-            Hi, Jg_i, Jh_i, sig_w, inv_sig_s = ctx
-            b_w, b_g = -r_dw, -r_g
-            b_h = -r_h_mod if q else r_dw.new_zeros((0,))
+        backend = band_backend(self._dtype, dev)
 
-            H_ii = Hi[:, ic[:, None], ic[None, :]]
-            H_ib = Hi[:, ic[:, None], bc[None, :]]
-            H_bb = Hi[:, bc[:, None], bc[None, :]]
-            Jg_int = Jg_i[:, ir]                # (I, n_ir, d)
-            Jg_bnd = Jg_i[:, br]                # (I, n_br, d)
-            J_ii = Jg_int[:, :, ic]
-            J_ib = Jg_int[:, :, bc]
-            Jb_ii = Jg_bnd[:, :, ic]            # bnd rows x int cols
-            Jb_ib = Jg_bnd[:, :, bc]
-            sig_int = sig_w[A_int_t] + delta    # (I, n_iv)
+        def solve(ctx, r_dw, r_g, r_h_mod, delta):
+            Hi, Jg_i, Jh_i, sig_w, inv_sig_s = ctx      # (B, I, ...)
+            B = Hi.shape[0]
+            b_w, b_g = -r_dw, -r_g
+            b_h = -r_h_mod if q else r_dw.new_zeros((B, 0))
+
+            H_ii = Hi[:, :, ic[:, None], ic[None, :]]
+            H_ib = Hi[:, :, ic[:, None], bc[None, :]]
+            H_bb = Hi[:, :, bc[:, None], bc[None, :]]
+            Jg_int = Jg_i[:, :, ir]             # (B, I, n_ir, d)
+            Jg_bnd = Jg_i[:, :, br]             # (B, I, n_br, d)
+            J_ii = Jg_int[..., ic]
+            J_ib = Jg_int[..., bc]
+            Jb_ii = Jg_bnd[..., ic]             # bnd rows x int cols
+            Jb_ib = Jg_bnd[..., bc]
+            sig_int = sig_w[:, A_int_t] + delta[:, None, None]  # (B,I,n_iv)
             eye_ir = torch.eye(n_ir, dtype=Hi.dtype, device=Hi.device)
 
-            M_ii = torch.cat([
-                torch.cat([H_ii + torch.diag_embed(sig_int),
-                           J_ii.transpose(1, 2)], dim=2),
-                torch.cat([J_ii, (-delta_cons * eye_ir).expand(
-                    I, n_ir, n_ir)], dim=2)], dim=1)
+            def T_(x):
+                return x.transpose(-1, -2)
 
-            top = [H_ib, Jb_ii.transpose(1, 2)]
+            M_ii = torch.cat([
+                torch.cat([H_ii + torch.diag_embed(sig_int), T_(J_ii)],
+                          dim=-1),
+                torch.cat([J_ii, (-delta_cons * eye_ir).expand(
+                    B, I, n_ir, n_ir)], dim=-1)], dim=-2)
+
+            top = [H_ib, T_(Jb_ii)]
             if nlr:
-                Jh_int = Jh_i[:, :, ic]
-                Jh_bnd = Jh_i[:, :, bc]
-                top.append(Jh_int.transpose(1, 2))
+                Jh_int = Jh_i[..., ic]
+                Jh_bnd = Jh_i[..., bc]
+                top.append(T_(Jh_int))
             M_ib = torch.cat([
-                torch.cat(top, dim=2),
-                torch.cat([J_ib, Hi.new_zeros((I, n_ir, n_be - n_bv))],
-                          dim=2)], dim=1)
+                torch.cat(top, dim=-1),
+                torch.cat([J_ib, Hi.new_zeros((B, I, n_ir, n_be - n_bv))],
+                          dim=-1)], dim=-2)
 
             # boundary block (rows diag: -delta_cons for eq rows,
             # -(inv_sig_s + delta_cons) for h rows)
-            rows = [torch.cat([H_bb, Jb_ib.transpose(1, 2)]
-                              + ([Jh_bnd.transpose(1, 2)] if nlr else []),
-                              dim=2),
-                    torch.cat([Jb_ib, Hi.new_zeros((I, n_br, n_br + nlr))],
-                              dim=2)]
+            rows = [torch.cat([H_bb, T_(Jb_ib)]
+                              + ([T_(Jh_bnd)] if nlr else []), dim=-1),
+                    torch.cat([Jb_ib,
+                               Hi.new_zeros((B, I, n_br, n_br + nlr))],
+                              dim=-1)]
             if nlr:
                 rows.append(torch.cat(
-                    [Jh_bnd, Hi.new_zeros((I, nlr, n_br + nlr))], dim=2))
-            M_bb = torch.cat(rows, dim=1)
+                    [Jh_bnd, Hi.new_zeros((B, I, nlr, n_br + nlr))],
+                    dim=-1))
+            M_bb = torch.cat(rows, dim=-2)
             diag_rows = torch.cat([
-                Hi.new_zeros((I, n_bv)),
-                torch.full((I, n_br), -delta_cons, dtype=Hi.dtype,
-                           device=Hi.device),
-                (-(inv_sig_s[R_h_flat].reshape(I, nlr) + delta_cons)
-                 if nlr else Hi.new_zeros((I, 0)))], dim=1)
+                Hi.new_zeros((B, I, n_bv)),
+                Hi.new_full((B, I, n_br), -delta_cons),
+                (-(inv_sig_s[:, R_h_flat].reshape(B, I, nlr) + delta_cons)
+                 if nlr else Hi.new_zeros((B, I, 0)))], dim=-1)
             M_bb = M_bb + torch.diag_embed(diag_rows)
 
-            b_int = torch.cat([b_w[A_int_t], b_g[R_g_int_t]], dim=1)
-            rhs_int = torch.cat([M_ib, b_int[..., None]], dim=2)
+            b_int = torch.cat([b_w[:, A_int_t], b_g[:, R_g_int_t]], dim=-1)
+            rhs_int = torch.cat([M_ib, b_int[..., None]], dim=-1)
             Y = torch.linalg.solve_ex(M_ii, rhs_int)[0]   # no raise/sync
-            C_i = M_bb - torch.einsum("Iij,Iik->Ijk", M_ib, Y[..., :n_be])
-            corr = torch.einsum("Iij,Ii->Ij", M_ib, Y[..., n_be])
+            C_i = M_bb - torch.einsum("...ij,...ik->...jk", M_ib,
+                                      Y[..., :n_be])
+            corr = torch.einsum("...ij,...i->...j", M_ib, Y[..., n_be])
 
             D, U, Lo, Bord, Root = assembler.assemble(
-                C_i, sig_w + delta,
-                torch.full((n_x,), -delta_cons, dtype=Hi.dtype,
-                           device=Hi.device))
+                C_i, sig_w + delta[:, None],
+                Hi.new_full((B, n_x), -delta_cons))
             rhs_c, rhs_r = assembler.pack_rhs(b_w, b_g, b_h)
             rhs_c, rhs_r = assembler.add_corrections(rhs_c, rhs_r, corr)
             n_ref = 0 if r_dw.dtype == torch.float32 else n_refine
             x_c, x_r = bbd_solve(D, U, Lo, Bord, Root, rhs_c, rhs_r,
-                                 n_refine=n_ref)
+                                 n_refine=n_ref, backend=backend)
             dw, dg, dh, x_ent = assembler.unpack_sol(x_c, x_r)
-            x_int = Y[..., n_be] - torch.einsum("Iib,Ib->Ii",
+            x_int = Y[..., n_be] - torch.einsum("...ib,...b->...i",
                                                 Y[..., :n_be], x_ent)
-            dw[A_int_flat] = x_int[:, :n_iv].reshape(-1)
-            dg[R_g_int_flat] = x_int[:, n_iv:].reshape(-1)
+            dw[:, A_int_flat] = x_int[..., :n_iv].reshape(B, -1)
+            dg[:, R_g_int_flat] = x_int[..., n_iv:].reshape(B, -1)
             return dw, dg, dh
 
         return prepare, solve
@@ -1181,16 +1209,18 @@ class MPC(Optimizer, IteratedVariables):
         T = self._tensor
         with profiler.step_annotation("dompc_tpu_torch.MPC.solve",
                                       self._n_solves):
+            # a batch of one instance; element 0 is read below
             if self.flags["initial_run"]:
                 sol = self._solve_raw(
-                    T(self.opt_x_num), T(self.opt_p_num), T(self._lam_warm),
-                    self.settings.warm_start_mu, T(self._zl_warm),
-                    T(self._zu_warm))
+                    T(self.opt_x_num)[None], T(self.opt_p_num)[None],
+                    T(self._lam_warm)[None], self.settings.warm_start_mu,
+                    T(self._zl_warm)[None], T(self._zu_warm)[None])
             else:
-                sol = self._solve_raw(T(self.opt_x_num), T(self.opt_p_num))
+                sol = self._solve_raw(T(self.opt_x_num)[None],
+                                      T(self.opt_p_num)[None])
 
         def host(a):
-            return a.detach().to("cpu", torch.float64).numpy()
+            return a[0].detach().to("cpu", torch.float64).numpy()
 
         w = host(sol.w)
         self._last_sol = sol
@@ -1200,14 +1230,14 @@ class MPC(Optimizer, IteratedVariables):
         self._zl_warm = host(sol.zl)
         self._zu_warm = host(sol.zu)
         self.lam_g_num = self._lam_warm
-        success = bool(sol.success)
+        success = bool(sol.success[0])
         self.solver_stats = {
             "success": success,
-            "iter_count": int(sol.iterations),
+            "iter_count": int(sol.iterations[0]),
             "t_wall_total": _time.perf_counter() - t_start,
             "return_status": "Solve_Succeeded" if success
             else "Maximum_Iterations_Exceeded",
-            "kkt_err": float(sol.kkt_err),
+            "kkt_err": float(sol.kkt_err[0]),
         }
         self.flags["initial_run"] = True
 

@@ -9,10 +9,10 @@ tree-ancestor variables:
 
 Solve by Schur complement on the root:
 
-    1. one multi-RHS block-QR sweep over all chains:
-       Y_c = A_c^{-1} [B_c, rhs_c]          (solver/band_qr.py: the CUDA
-                                            kernel on the card, its twin on
-                                            the CPU)
+    1. one multi-RHS block-QR sweep over all chains of the batch:
+       Y_c = A_c^{-1} [B_c, rhs_c]          (solver/band_qr.py: a CUDA
+                                            kernel on the card, the plain
+                                            sweep on the CPU)
     2. S = R - sum_c B_c^T Y_c[:, :r];  x_r = S^{-1} (rhs_r - sum B^T y)
     3. x_c = y_c - Y_c[:, :r] x_r
 
@@ -22,10 +22,13 @@ solver's device as tensors.
 """
 from __future__ import annotations
 
+import os
+import warnings
+
 import numpy as np
 import torch
 
-from .band_qr import band_solve
+from . import band_qr
 
 ROOT = -1       # chain id of root-assigned entities
 PARAM = -2      # chain id of parameter/dummy columns (dropped)
@@ -76,12 +79,12 @@ def _plan_to(plan, device):
 
 def _gather_apply(plan, V):
     """Evaluate a _gather_plan (index tensors on V's device).  ``V``:
-    source vector WITH a trailing zero at the pad position.  Returns T of
-    length t_size - 1."""
-    T = V[plan["low"]].sum(dim=1)
+    (B, sources) WITH a trailing zero at the pad position.  Returns T of
+    shape (B, t_size - 1)."""
+    T = V[:, plan["low"]].sum(dim=-1)
     if plan["high_slots"].numel():
-        hs = V[plan["high"]].sum(dim=1)
-        T = T.index_add(0, plan["high_slots"], hs)
+        hs = V[:, plan["high"]].sum(dim=-1)
+        T = T.index_add(1, plan["high_slots"], hs)
     return T
 
 
@@ -183,25 +186,27 @@ class _BandLayout:
         return pad
 
     def split(self, T, pad_diag):
-        """(D, U, Lo, Bord, Root) from the flat assembled vector; the trash
-        slot b-1 of every block gets an identity row/column."""
+        """(D, U, Lo, Bord, Root) of a batch from the flat assembled rows
+        T (B, T_size); the trash slot b-1 of every block gets an identity
+        row/column."""
         C, S, b, R, bs = self.C, self.S, self.b, self.R, self.band_sz
-        D = T[:bs].reshape(C, S, b, b)
-        U = T[bs:2 * bs].reshape(C, S, b, b)
-        Lo = T[2 * bs:3 * bs].reshape(C, S, b, b)
-        Bord = T[self.bord_off:self.root_off].reshape(C, S, b, R)
-        Root = T[self.root_off:self.root_off + R * R].reshape(R, R)
+        B = T.shape[0]
+        D = T[:, :bs].reshape(B, C, S, b, b)
+        U = T[:, bs:2 * bs].reshape(B, C, S, b, b)
+        Lo = T[:, 2 * bs:3 * bs].reshape(B, C, S, b, b)
+        Bord = T[:, self.bord_off:self.root_off].reshape(B, C, S, b, R)
+        Root = T[:, self.root_off:self.root_off + R * R].reshape(B, R, R)
         tr = b - 1
         for M in (D, U, Lo):
-            M[:, :, tr, :] = 0.0
-            M[:, :, :, tr] = 0.0
-        D[:, :, tr, tr] = 1.0
+            M[..., tr, :] = 0.0
+            M[..., :, tr] = 0.0
+        D[..., tr, tr] = 1.0
         if R:
-            Bord[:, :, tr, :] = 0.0
+            Bord[..., tr, :] = 0.0
         D = D + torch.diag_embed(pad_diag)
         # U slot k: (stage k rows, stage k+1 cols); Lo slot k: (stage k+1
         # rows, stage k cols) -- slots 0..S-2
-        return D, U[:, :-1], Lo[:, :-1], Bord, Root
+        return D, U[:, :, :-1], Lo[:, :, :-1], Bord, Root
 
 
 class BBDAssembler:
@@ -328,33 +333,32 @@ class BBDAssembler:
         self.h_pos = torch.as_tensor(pos(h_chain, h_stage, h_loc), device=dev)
 
     def assemble(self, H_i, Jg_i, Jh_i, sig_w_delta, g_diag, h_diag):
-        """Build (D, U, Lo, Bord, Root) from instance tensors by
-        gather+sum."""
-        dtype, dev = H_i.dtype, H_i.device
+        """Build (D, U, Lo, Bord, Root) of a batch from instance tensors
+        (B, I, ...) and diagonals (B, ...) by gather+sum."""
+        B = H_i.shape[0]
         V = torch.cat([
-            H_i.reshape(-1), Jg_i.reshape(-1), Jh_i.reshape(-1),
-            torch.ones((self._n_init_ones,), dtype=dtype, device=dev),
-            sig_w_delta, g_diag]
-            + ([h_diag] if self.q else [])
-            + [torch.zeros((1,), dtype=dtype, device=dev)])
+            H_i.reshape(B, -1), Jg_i.reshape(B, -1), Jh_i.reshape(B, -1),
+            H_i.new_ones((B, self._n_init_ones)), sig_w_delta, g_diag]
+            + ([h_diag] if self.q else []) + [H_i.new_zeros((B, 1))], dim=1)
         T = _gather_apply(self._gather, V)
-        T = torch.cat([T, torch.zeros((1,), dtype=dtype, device=dev)])
-        return self._lay.split(T, self._pad_diag.to(dtype))
+        T = torch.cat([T, T.new_zeros((B, 1))], dim=1)
+        return self._lay.split(T, self._pad_diag.to(H_i.dtype))
 
     def pack_rhs(self, r_w, r_g, r_h):
-        vec = torch.zeros((self.vec_size,), dtype=r_w.dtype,
-                          device=r_w.device)
-        vec[self.w_pos] = r_w
-        vec[self.g_pos] = r_g
+        vec = r_w.new_zeros((r_w.shape[0], self.vec_size))
+        vec[:, self.w_pos] = r_w
+        vec[:, self.g_pos] = r_g
         if self.q:
-            vec[self.h_pos] = r_h
+            vec[:, self.h_pos] = r_h
         csb = self.C * self.S * self.b
-        return vec[:csb].reshape(self.C, self.S, self.b), vec[csb:]
+        return (vec[:, :csb].reshape(-1, self.C, self.S, self.b),
+                vec[:, csb:])
 
     def unpack_sol(self, x_c, x_r):
-        flat = torch.cat([x_c.reshape(-1), x_r])
-        dh = flat[self.h_pos] if self.q else x_c.new_zeros((0,))
-        return flat[self.w_pos], flat[self.g_pos], dh
+        B = x_c.shape[0]
+        flat = torch.cat([x_c.reshape(B, -1), x_r], dim=1)
+        dh = flat[:, self.h_pos] if self.q else x_c.new_zeros((B, 0))
+        return flat[:, self.w_pos], flat[:, self.g_pos], dh
 
 
 class CondensedAssembler:
@@ -490,47 +494,48 @@ class CondensedAssembler:
             device=dev)
 
     def assemble(self, C_i, sig_w_delta, g_diag_init):
-        """Assemble condensed per-instance blocks into (D, U, Lo, Bord,
-        Root) by two-tier gather+sum.  ``C_i``: (I, n_ent, n_ent) symmetric
-        condensed blocks; ``sig_w_delta``: (n,) diagonal for live vars;
-        ``g_diag_init``: (n_x0,) diagonal of the initial-condition rows."""
-        dtype, dev = C_i.dtype, C_i.device
+        """Assemble condensed per-instance blocks of a batch into (D, U,
+        Lo, Bord, Root) by two-tier gather+sum.  ``C_i``: (B, I, n_ent,
+        n_ent) symmetric condensed blocks; ``sig_w_delta``: (B, n) diagonal
+        for live vars; ``g_diag_init``: (B, n_x0) diagonal of the
+        initial-condition rows."""
+        B = C_i.shape[0]
         V = torch.cat([
-            C_i.reshape(-1), sig_w_delta,
-            torch.ones((self._n_init_ones,), dtype=dtype, device=dev),
-            g_diag_init.reshape(-1),
-            torch.zeros((1,), dtype=dtype, device=dev)])
+            C_i.reshape(B, -1), sig_w_delta,
+            C_i.new_ones((B, self._n_init_ones)),
+            g_diag_init.reshape(B, -1), C_i.new_zeros((B, 1))], dim=1)
         T = _gather_apply(self._gather, V)
-        T = torch.cat([T, torch.zeros((1,), dtype=dtype, device=dev)])
-        return self._lay.split(T, self._pad_diag.to(dtype))
+        T = torch.cat([T, T.new_zeros((B, 1))], dim=1)
+        return self._lay.split(T, self._pad_diag.to(C_i.dtype))
 
     def pack_rhs(self, b_w, b_g, b_h):
-        vec = torch.zeros((self.vec_size,), dtype=b_w.dtype,
-                          device=b_w.device)
-        vec[self.w_pos] = b_w
-        vec[self.g_pos] = b_g
+        vec = b_w.new_zeros((b_w.shape[0], self.vec_size))
+        vec[:, self.w_pos] = b_w
+        vec[:, self.g_pos] = b_g
         if self.q:
-            vec[self.h_pos] = b_h
-        vec[-1] = 0.0
+            vec[:, self.h_pos] = b_h
+        vec[:, -1] = 0.0
         csb = self.C * self.S * self.b
-        return (vec[:csb].reshape(self.C, self.S, self.b),
-                vec[csb:csb + self.R])
+        return (vec[:, :csb].reshape(-1, self.C, self.S, self.b),
+                vec[:, csb:csb + self.R])
 
     def add_corrections(self, rhs_c, rhs_r, corr):
         """Subtract per-instance boundary corrections (Schur rhs term
-        M_bi M_ii^{-1} b_int); corr: (I, n_ent)."""
+        M_bi M_ii^{-1} b_int); corr: (B, I, n_ent)."""
+        B = corr.shape[0]
         csb = self.C * self.S * self.b
-        vec = torch.zeros((self.vec_size,), dtype=corr.dtype,
-                          device=corr.device)
-        vec.index_add_(0, self.ent_pos, corr.reshape(-1))
-        return (rhs_c - vec[:csb].reshape(self.C, self.S, self.b),
-                rhs_r - vec[csb:csb + self.R])
+        vec = corr.new_zeros((B, self.vec_size))
+        vec.index_add_(1, self.ent_pos, corr.reshape(B, -1))
+        return (rhs_c - vec[:, :csb].reshape(B, self.C, self.S, self.b),
+                rhs_r - vec[:, csb:csb + self.R])
 
     def unpack_sol(self, x_c, x_r):
-        flat = torch.cat([x_c.reshape(-1), x_r, x_c.new_zeros((1,))])
-        dh = flat[self.h_pos] if self.q else x_c.new_zeros((0,))
-        return (flat[self.w_pos], flat[self.g_pos], dh,
-                flat[self.ent_pos].reshape(-1, self.n_ent))
+        B = x_c.shape[0]
+        flat = torch.cat([x_c.reshape(B, -1), x_r, x_c.new_zeros((B, 1))],
+                         dim=1)
+        dh = flat[:, self.h_pos] if self.q else x_c.new_zeros((B, 0))
+        return (flat[:, self.w_pos], flat[:, self.g_pos], dh,
+                flat[:, self.ent_pos].reshape(B, -1, self.n_ent))
 
 
 def band_matvec(D, U, Lo, X):
@@ -543,55 +548,123 @@ def band_matvec(D, U, Lo, X):
 
 
 def bbd_matvec(D, U, Lo, Bord, Root, x_c, x_r):
-    """Apply the full BBD operator; x_c (C,S,b), x_r (R,)."""
-    y = band_matvec(D, U, Lo, x_c[..., None])[..., 0]
-    if Root.shape[0]:
-        y = y + torch.einsum("ckir,r->cki", Bord, x_r)
-        y_r = Root @ x_r + torch.einsum("ckir,cki->r", Bord, x_c)
+    """Apply the full BBD operator; x_c (..., C,S,b), x_r (..., R), with
+    any leading batch axes."""
+    S, b = x_c.shape[-2:]
+    N = x_c.numel() // (S * b)
+    y = band_matvec(D.reshape(N, S, b, b), U.reshape(N, S - 1, b, b),
+                    Lo.reshape(N, S - 1, b, b),
+                    x_c.reshape(N, S, b, 1)).reshape(x_c.shape)
+    if Root.shape[-1]:
+        y = y + torch.einsum("...ckir,...r->...cki", Bord, x_r)
+        y_r = torch.einsum("...rs,...s->...r", Root, x_r) \
+            + torch.einsum("...ckir,...cki->...r", Bord, x_c)
     else:
-        y_r = x_c.new_zeros((0,))
+        y_r = x_c.new_zeros(x_r.shape)
     return y, y_r
 
 
 SPIKE_S_MIN = 48      # chains this long are partitioned (SPIKE) in the JAX
-                      # package (bbd.py:820-853); not ported yet
+                      # package (bbd.py:807-853); not ported yet
+BAND_BACKENDS = ("", "pallas", "pallas_tiled")   # values with a CUDA kernel
 
 
-def bbd_solve(D, U, Lo, Bord, Root, rhs_c, rhs_r, n_refine=0):
-    """Solve the bordered-block-diagonal system.
+def band_backend(dtype, device):
+    """The chain sweep that ``DOMPC_TPU_BAND_BACKEND`` selects, read once
+    when a KKT backend is built (the JAX package reads it at trace time,
+    ``bbd.py:776-794``): ``"pallas"`` (the default) sweeps with
+    :func:`band_qr.band_solve`, ``"pallas_tiled"`` with
+    :func:`band_qr.band_solve_tiled`, float32 only; in float64 it warns
+    and takes ``"pallas"``, as JAX falls back from its float32-only
+    kernels.  The XLA formulations (``lanes``, ``lanes_wy``, ``scan``) have
+    no kernel in the port: on CUDA they raise, and on the CPU, where every
+    choice runs the plain sweep, they are returned as they are."""
+    env = os.environ.get("DOMPC_TPU_BAND_BACKEND", "")
+    choice = env or "pallas"
+    if torch.device(device).type == "cuda" and env not in BAND_BACKENDS:
+        raise ValueError(
+            f"DOMPC_TPU_BAND_BACKEND={env!r} has no CUDA kernel in the "
+            f"port; accepted values: {BAND_BACKENDS}")
+    if choice == "pallas_tiled" and dtype != torch.float32:
+        warnings.warn(
+            f"DOMPC_TPU_BAND_BACKEND={choice} requires float32 inputs "
+            f"(got {dtype}); using the 'pallas' band-QR kernel.")
+        choice = "pallas"
+    return choice
 
-    One multi-RHS band sweep over all chains computes A_c^{-1}[B_c, r_c]
-    (:func:`band_solve`: the CUDA kernel for CUDA tensors, its twin for
-    CPU tensors); the root is then eliminated by a small dense
-    Schur-complement solve.  ``n_refine`` passes of iterative refinement
-    re-run the sweep on the residual.
+
+def _spike_parts(S, dtype, backend, n_refine):
+    """The JAX package's SPIKE partition heuristic (``bbd.py:820-853``):
+    (partition count, n_refine).  In float32 a partition also raises
+    ``n_refine`` to ``DOMPC_TPU_SPIKE_F32_REFINE``."""
+    spike_env = os.environ.get("DOMPC_TPU_SPIKE", "")
+    if spike_env:
+        n_parts = int(spike_env)
+    elif dtype == torch.float32:
+        sp_ref = int(os.environ.get("DOMPC_TPU_SPIKE_F32_REFINE", "2"))
+        n_parts = (max(2, round((S + 1) / 8))
+                   if (sp_ref and S >= SPIKE_S_MIN) else 0)
+        if n_parts:
+            n_refine = max(n_refine, sp_ref)
+    else:
+        n_parts = max(2, round((S + 1) / 8)) if S >= SPIKE_S_MIN else 0
+    if n_parts < 2 or S < 2 * n_parts - 1 or backend == "lanes_wy":
+        n_parts = 0
+    return n_parts, n_refine
+
+
+def bbd_solve(D, U, Lo, Bord, Root, rhs_c, rhs_r, n_refine=0,
+              backend="pallas"):
+    """Solve a batch of bordered-block-diagonal systems.
+
+    D (B,C,S,b,b); U, Lo (B,C,S-1,b,b); Bord (B,C,S,b,R); Root (B,R,R);
+    rhs_c (B,C,S,b); rhs_r (B,R).  Without the leading B axis one system is
+    solved.  One multi-RHS band sweep over all B*C chains computes
+    A_c^{-1}[B_c, r_c] (``backend`` from :func:`band_backend`: the CUDA
+    kernel for CUDA tensors, the plain sweep for CPU tensors), as the JAX
+    package's custom-vmap rule flattens the batch into the chain axis; the
+    roots are then eliminated by batched small dense Schur-complement
+    solves.  ``n_refine`` passes of iterative refinement re-run the sweep
+    on the residual.
     """
-    C, S, b, R = Bord.shape
-    if S >= SPIKE_S_MIN:
+    if D.ndim == 4:
+        x_c, x_r = bbd_solve(*(a[None] for a in (D, U, Lo, Bord, Root,
+                                                 rhs_c, rhs_r)),
+                             n_refine=n_refine, backend=backend)
+        return x_c[0], x_r[0]
+    B, C, S, b, R = Bord.shape
+    n_parts, n_refine = _spike_parts(S, D.dtype, backend, n_refine)
+    if n_parts and backend != "pallas_tiled":
+        # JAX takes the tiled kernel before SPIKE (bbd.py:868-873)
         raise NotImplementedError(
             f"chains of S={S} >= {SPIKE_S_MIN} stages take the partitioned "
             "SPIKE sweep, which is not ported yet")
-    D, U, Lo, Bord = (a.contiguous() for a in (D, U, Lo, Bord))
+    sweep = band_qr.band_solve_tiled if backend == "pallas_tiled" \
+        else band_qr.band_solve
+    D, U, Lo = (a.reshape((B * C,) + a.shape[2:]).contiguous()
+                for a in (D, U, Lo))
 
     def one_solve(rc, rr):
         aug = torch.cat([Bord, rc[..., None]], dim=-1) if R \
             else rc[..., None]
-        Y = band_solve(D, U, Lo, aug.contiguous())         # (C,S,b,R+1)
+        Y = sweep(D, U, Lo, aug.reshape(B * C, S, b, R + 1).contiguous())
+        Y = Y.reshape(B, C, S, b, R + 1)
         if not R:
-            return Y[..., 0], rc.new_zeros((0,))
-        BtY = torch.einsum("ckir,ckit->rt", Bord, Y)       # (R, R+1)
-        S_r = Root - BtY[:, :R]
-        s_rhs = rr - BtY[:, R]
+            return Y[..., 0], rc.new_zeros((B, 0))
+        BtY = torch.einsum("bckir,bckit->brt", Bord, Y)    # (B, R, R+1)
+        S_r = Root - BtY[..., :R]
+        s_rhs = rr - BtY[..., R]
         # solve_ex: a singular root gives non-finite values, which the IPM
         # rejects, as with jnp.linalg.solve (and no host sync on the card)
-        x_r = torch.linalg.solve_ex(S_r, s_rhs)[0]
-        x_c = Y[..., R] - torch.einsum("ckit,t->cki", Y[..., :R], x_r)
+        x_r = torch.linalg.solve_ex(S_r, s_rhs[..., None])[0][..., 0]
+        x_c = Y[..., R] - torch.einsum("bckit,bt->bcki", Y[..., :R], x_r)
         return x_c, x_r
 
     with torch.profiler.record_function("kkt.bbd_solve"):
         x_c, x_r = one_solve(rhs_c, rhs_r)
+        Db, Ub, Lb = (a.reshape((B, C) + a.shape[1:]) for a in (D, U, Lo))
         for _ in range(n_refine):
-            y_c, y_r = bbd_matvec(D, U, Lo, Bord, Root, x_c, x_r)
+            y_c, y_r = bbd_matvec(Db, Ub, Lb, Bord, Root, x_c, x_r)
             e_c, e_r = one_solve(rhs_c - y_c, rhs_r - y_r)
             x_c = x_c + e_c
             x_r = x_r + e_r

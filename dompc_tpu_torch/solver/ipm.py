@@ -1,4 +1,4 @@
-"""Primal-dual interior-point NLP solver (PyTorch port).
+"""Primal-dual interior-point NLP solver (PyTorch port), batch-first.
 
 Counterpart of the JAX package's ``solver/ipm.py`` on its default path:
 Fiacco-McCormick barrier loop with exact-Hessian primal-dual Newton steps,
@@ -12,12 +12,13 @@ Problem form:
 
     min_w f(w, p)   s.t.  g(w, p) = 0,  h(w, p) <= 0,  lb <= w <= ub
 
-The JAX ``lax.while_loop`` becomes a Python loop, and ``_cond_any``
-(skip a branch when no element needs it) a Python ``if`` on the
-predicate: the same zero-trip semantics.  The state keeps the JAX
-solver's select-based arithmetic (``torch.where``, no per-element Python
-branching), so a leading batch axis can be added later; this port
-solves one instance at a time.
+Every state field has a leading batch axis (B,): B instances are solved in
+lockstep, each exactly as it would be alone.  These are the semantics of
+``jax.vmap`` over the JAX solver: its ``lax.while_loop`` becomes a Python
+loop that runs while any element is unfinished, and elements that are
+finished are frozen by ``torch.where``; ``_cond_any`` (skip a branch when
+no element needs it) is a host-side ``if`` on the predicate's ``any()``.
+``MPC.make_step`` solves with B=1.
 """
 from __future__ import annotations
 
@@ -124,13 +125,14 @@ def ipm_settings_from(st, **overrides) -> "IPMSettings":
 
 
 class IPMState(NamedTuple):
+    """Solver state; every field has the leading batch axis (B,)."""
     w: torch.Tensor
     s: torch.Tensor
     lam: torch.Tensor      # equality multipliers [g; h+s]
     zl: torch.Tensor       # lower bound duals for [w; s]
     zu: torch.Tensor       # upper bound duals for [w; s]
     mu: torch.Tensor
-    it: int
+    it: torch.Tensor       # iterations taken, per element
     converged: torch.Tensor
     kkt_err: torch.Tensor
     prox: torch.Tensor     # adaptive Levenberg damping
@@ -151,7 +153,7 @@ class IPMSolution(NamedTuple):
     zu: torch.Tensor
     f: torch.Tensor
     kkt_err: torch.Tensor
-    iterations: int
+    iterations: torch.Tensor
     success: torch.Tensor
 
 
@@ -168,16 +170,33 @@ def _cond_any(pred, true_fn, false_val):
     return true_fn() if bool(torch.as_tensor(pred).any()) else false_val
 
 
+def _c(x):
+    """A per-element (B,) value as a column against (B, k) tensors; Python
+    scalars pass through."""
+    return x[..., None] if torch.is_tensor(x) and x.ndim else x
+
+
+def _sel(cond, new, old):
+    """Per-element select: ``cond`` (B,) broadcast over ``new``/``old``."""
+    return torch.where(cond.reshape(cond.shape + (1,) * (new.ndim - 1)),
+                       new, old)
+
+
 def _maxabs(x):
-    """max |x| with 0 for an empty tensor (jnp ``initial=0.0``)."""
-    return x.abs().amax() if x.numel() else x.new_zeros(())
+    """max |x| over the last axis, 0 where it is empty (jnp
+    ``initial=0.0``)."""
+    return x.abs().amax(-1) if x.shape[-1] else x.new_zeros(x.shape[:-1])
 
 
 def _all_finite(*xs):
-    out = torch.ones((), dtype=torch.bool, device=xs[0].device)
-    for x in xs:
-        out = out & torch.isfinite(x).all()
+    out = torch.isfinite(xs[0]).all(-1)
+    for x in xs[1:]:
+        out = out & torch.isfinite(x).all(-1)
     return out
+
+
+def _dot(a, b):
+    return (a * b).sum(-1)
 
 
 def make_ipm_solver(
@@ -194,17 +213,27 @@ def make_ipm_solver(
     dtype: Optional[torch.dtype] = None,
     device: Optional[torch.device] = None,
 ):
-    """Build a single-instance solver
-    ``solve(w0, p, lam0=None, mu0=None, zl0=None, zu0=None) -> IPMSolution``.
+    """Build ``solve(w0, p, lam0=None, mu0=None, zl0=None, zu0=None) ->
+    IPMSolution``.
 
-    f/g/h take (w, p) tensors.  ``lb/ub`` are numpy arrays (may contain
-    +-inf), moved to ``device`` in ``dtype``.  ``structured_solve`` is a
-    ``(prepare, solve)`` pair: ``prepare(w, p, lam_g, lam_h, sig_w,
-    inv_sig_s)`` once per Newton step, ``solve(ctx, r_dw, r_g, r_h_mod,
-    delta) -> (dw, dlam_g, dlam_h)`` for every right-hand side.  Without
-    it the KKT system is solved densely.  ``device`` and ``dtype`` default
-    to the environment's choice (``DOMPC_TPU_PLATFORM``, ``DOMPC_TPU_X64``):
-    CUDA unless the CPU is asked for.
+    ``w0`` (B, n) with ``p`` (B, n_p) solves B instances in lockstep, each
+    as it would be solved alone; the solution's fields keep the batch axis
+    (``iterations`` is a per-element tensor).  ``mu0`` is a scalar or (B,).
+    ``solve.newton_steps`` counts the Newton steps the batch took (one per
+    loop pass in which some element was unconverged).
+
+    The callables are batch-first: f: (B,n),(B,n_p) -> (B,); g, h ->
+    (B,rows); ``grad_f_fn`` -> (B,n); ``jac_*_fn`` -> (B,rows,n);
+    ``hess_fn(w, p, lam_g, lam_h)`` -> (B,n,n).  ``lb/ub`` are numpy
+    arrays (may contain +-inf), moved to
+    ``device`` in ``dtype``.  ``structured_solve`` is a ``(prepare,
+    solve)`` pair: ``prepare(w, p, lam_g, lam_h, sig_w, inv_sig_s)`` once
+    per Newton step, ``solve(ctx, r_dw, r_g, r_h_mod, delta) -> (dw,
+    dlam_g, dlam_h)`` for every right-hand side, with (B, ...) arguments
+    and ``delta`` (B,).  Without it the KKT system is solved densely.
+    ``device`` and ``dtype`` default to the environment's choice
+    (``DOMPC_TPU_PLATFORM``, ``DOMPC_TPU_X64``): CUDA unless the CPU is
+    asked for.
     """
     st = settings
     for name, default in _UNPORTED.items():
@@ -228,30 +257,39 @@ def make_ipm_solver(
     has_ub = torch.isfinite(ub)
     ones_q = torch.ones((q,), dtype=torch.bool, device=device)
     zeros_qb = torch.zeros((q,), dtype=torch.bool, device=device)
-    empty = torch.zeros((0,), dtype=dtype, device=device)
     inf = float("inf")
+    vmap = torch.func.vmap
 
-    grad_f = grad_f_fn if grad_f_fn is not None else torch.func.grad(f)
+    def one(fn):
+        """One instance's view of a batch-first callable."""
+        return lambda w, p: fn(w[None], p[None])[0]
+    f1, g1, h1 = one(f), one(g) if m else None, one(h) if q else None
+    grad_f = grad_f_fn if grad_f_fn is not None else \
+        torch.func.grad(lambda w, p: f(w, p).sum())
     jac_g = jac_g_fn if jac_g_fn is not None else (
-        torch.func.jacfwd(g) if m else None)
+        vmap(torch.func.jacfwd(g1)) if m else None)
     jac_h = jac_h_fn if jac_h_fn is not None else (
-        torch.func.jacfwd(h) if q else None)
-
+        vmap(torch.func.jacfwd(h1)) if q else None)
     if hess_fn is None:
         def lagrangian(w, p, lam_g, lam_h):
-            val = f(w, p)
+            val = f1(w, p)
             if m:
-                val = val + torch.dot(lam_g, g(w, p))
+                val = val + torch.dot(lam_g, g1(w, p))
             if q:
-                val = val + torch.dot(lam_h, h(w, p))
+                val = val + torch.dot(lam_h, h1(w, p))
             return val
-        hess_fn = torch.func.hessian(lagrangian)
+        hess_fn = vmap(torch.func.hessian(lagrangian))
+
+    def empty(w):
+        return w.new_zeros(w.shape[:-1] + (0,))
 
     def eval_all(w, p):
-        return (g(w, p) if m else empty), (h(w, p) if q else empty)
+        return (g(w, p) if m else empty(w)), (h(w, p) if q else empty(w))
 
     # Jacobian-vector products (used instead of materialized Jacobians
-    # wherever possible, and exclusively in structured mode)
+    # wherever possible, and exclusively in structured mode).  Row b of a
+    # batched g depends on row b of w only, so one vjp/jvp over the batch
+    # is the per-element product.
     def jgT_mv(w, p, lam):
         if not m:
             return torch.zeros_like(w)
@@ -264,12 +302,12 @@ def make_ipm_solver(
 
     def jg_mv(w, p, dx):
         if not m:
-            return empty
+            return empty(w)
         return torch.func.jvp(lambda ww: g(ww, p), (w,), (dx,))[1]
 
     def jh_mv(w, p, dx):
         if not q:
-            return empty
+            return empty(w)
         return torch.func.jvp(lambda ww: h(ww, p), (w,), (dx,))[1]
 
     # -- barrier helpers over the combined (w bounds, s >= 0) --------------
@@ -283,16 +321,16 @@ def make_ipm_solver(
         val = f(w, p)
         dl = torch.where(has_lb, w - lb, 1.0)
         du = torch.where(has_ub, ub - w, 1.0)
-        val = val - mu * torch.sum(torch.where(has_lb, torch.log(dl), 0.0))
-        val = val - mu * torch.sum(torch.where(has_ub, torch.log(du), 0.0))
+        val = val - mu * torch.where(has_lb, torch.log(dl), 0.0).sum(-1)
+        val = val - mu * torch.where(has_ub, torch.log(du), 0.0).sum(-1)
         if q:
-            val = val - mu * torch.sum(torch.log(s))
+            val = val - mu * torch.log(s).sum(-1)
         return val
 
     def constraint_violation(gv, hv, s):
-        vio = torch.sum(torch.abs(gv)) if m else T(0.0)
+        vio = gv.abs().sum(-1) if m else gv.new_zeros(gv.shape[:-1])
         if q:
-            vio = vio + torch.sum(torch.abs(hv + s))
+            vio = vio + (hv + s).abs().sum(-1)
         return vio
 
     # -- KKT error ---------------------------------------------------------
@@ -301,7 +339,7 @@ def make_ipm_solver(
         the Newton step at the same point."""
         gf = grad_f(w, p)
         gv, hv = eval_all(w, p)
-        jtl = jgT_mv(w, p, lam[:m]) + jhT_mv(w, p, lam[m:])
+        jtl = jgT_mv(w, p, lam[:, :m]) + jhT_mv(w, p, lam[:, m:])
         return gf, gv, hv, jtl
 
     mask_l = torch.cat([has_lb, ones_q])
@@ -313,29 +351,29 @@ def make_ipm_solver(
         gf, gv, hv, jtl = pre if pre is not None else point_evals(
             w, lam, p)
         r_dw = gf + jtl
-        r_dw = r_dw - torch.where(has_lb, zl[:n], 0.0) \
-            + torch.where(has_ub, zu[:n], 0.0)
-        r_ds = (lam[m:] - zl[n:]) if q else empty
-        r_p = torch.cat([gv, hv + s])
+        r_dw = r_dw - torch.where(has_lb, zl[:, :n], 0.0) \
+            + torch.where(has_ub, zu[:, :n], 0.0)
+        r_ds = (lam[:, m:] - zl[:, n:]) if q else empty(w)
+        r_p = torch.cat([gv, hv + s], -1)
         dl_w, dl_s = dist_l(w, s)
         du_w = dist_u(w)
-        comp_l = torch.cat([torch.where(has_lb, dl_w * zl[:n], 0.0),
-                            dl_s * zl[n:]])
-        comp_u = torch.where(has_ub, du_w * zu[:n], 0.0)
-        z_sum = torch.sum(torch.abs(zl)) + torch.sum(torch.abs(zu))
-        lam_sum = torch.sum(torch.abs(lam))
+        comp_l = torch.cat([torch.where(has_lb, dl_w * zl[:, :n], 0.0),
+                            dl_s * zl[:, n:]], -1)
+        comp_u = torch.where(has_ub, du_w * zu[:, :n], 0.0)
+        z_sum = zl.abs().sum(-1) + zu.abs().sum(-1)
+        lam_sum = lam.abs().sum(-1)
         denom = n + q + m
         s_d = torch.clamp((lam_sum + z_sum) / max(denom, 1),
                           min=st.s_max) / st.s_max
         s_c = torch.clamp(z_sum / max(n + q, 1), min=st.s_max) / st.s_max
-        err_d = _maxabs(torch.cat([r_dw, r_ds])) / s_d
+        err_d = _maxabs(torch.cat([r_dw, r_ds], -1)) / s_d
         err_p = _maxabs(r_p)
         return err_d, err_p, comp_l, comp_u, s_c
 
     def err_from(res, mu):
         err_d, err_p, comp_l, comp_u, s_c = res
-        c_l = torch.where(mask_l, comp_l - mu, 0.0)
-        c_u = torch.where(has_ub, comp_u - mu, 0.0)
+        c_l = torch.where(mask_l, comp_l - _c(mu), 0.0)
+        c_u = torch.where(has_ub, comp_u - _c(mu), 0.0)
         err_c = torch.maximum(_maxabs(c_l), _maxabs(c_u)) / s_c
         return torch.maximum(torch.maximum(err_d, err_p), err_c)
 
@@ -344,28 +382,32 @@ def make_ipm_solver(
 
     # -- dense KKT solve ---------------------------------------------------
     def dense_kkt(Hw, Sig_w, Jg, Jh, inv_sig_s, r_dw, r_g, r_h_mod, delta):
-        dim = n + m + q
-        K = torch.zeros((dim, dim), dtype=dtype, device=device)
-        K[:n, :n] = Hw + torch.diag(Sig_w + delta)
+        B, dim = Hw.shape[0], n + m + q
+        K = Hw.new_zeros((B, dim, dim))
+        K[:, :n, :n] = Hw + torch.diag_embed(Sig_w + _c(delta))
         if m:
-            K[:n, n:n + m] = Jg.T
-            K[n:n + m, :n] = Jg
+            K[:, :n, n:n + m] = Jg.transpose(1, 2)
+            K[:, n:n + m, :n] = Jg
         if q:
-            K[:n, n + m:] = Jh.T
-            K[n + m:, :n] = Jh
-            K[n + m:, n + m:] = -torch.diag(inv_sig_s)
-        K[n:, n:] -= st.delta_cons * torch.eye(m + q, dtype=dtype,
-                                               device=device)
+            K[:, :n, n + m:] = Jh.transpose(1, 2)
+            K[:, n + m:, :n] = Jh
+            K[:, n + m:, n + m:] = -torch.diag_embed(inv_sig_s)
+        K[:, n:, n:] -= st.delta_cons * torch.eye(m + q, dtype=dtype,
+                                                  device=device)
         # solve_ex: singular K gives non-finite values (rejected by the
         # callers), as with jnp.linalg.solve, instead of raising
-        sol = torch.linalg.solve_ex(K, torch.cat([-r_dw, -r_g, -r_h_mod]))[0]
-        return sol[:n], sol[n:n + m], sol[n + m:]
+        rhs = torch.cat([-r_dw, -r_g, -r_h_mod], -1)[..., None]
+        sol = torch.linalg.solve_ex(K, rhs)[0][..., 0]
+        return sol[:, :n], sol[:, n:n + m], sol[:, n + m:]
 
     solve_kkt = kkt_solve if kkt_solve is not None else dense_kkt
 
     # -- one Newton iteration at fixed mu ----------------------------------
-    def newton_step(w, s, lam, zl, zu, p, mu, prox, pre):
-        lam_g, lam_h = lam[:m], lam[m:]
+    def newton_step(w, s, lam, zl, zu, p, mu, prox, pre, live):
+        """``live`` (B,): the elements whose step is used; host-side skips
+        look at those only (the others' results are discarded)."""
+        B = w.shape[0]
+        lam_g, lam_h = lam[:, :m], lam[:, m:]
         gf, gv, hv, jtl = pre
 
         dl_w, dl_s = dist_l(w, s)
@@ -374,19 +416,22 @@ def make_ipm_solver(
         du_w = torch.clamp(du_w, min=_TINY)
         dl_s = torch.clamp(dl_s, min=_TINY)
 
-        sig_w = torch.where(has_lb, zl[:n] / dl_w, 0.0) \
-            + torch.where(has_ub, zu[:n] / du_w, 0.0)
-        sig_s = zl[n:] / dl_s
+        sig_w = torch.where(has_lb, zl[:, :n] / dl_w, 0.0) \
+            + torch.where(has_ub, zu[:, :n] / du_w, 0.0)
+        sig_s = zl[:, n:] / dl_s
 
         # barrier-gradient form of the dual residual
         r_dw = gf + jtl \
-            - torch.where(has_lb, mu / dl_w, 0.0) \
-            + torch.where(has_ub, mu / du_w, 0.0)
-        r_ds = lam_h - mu / dl_s if q else empty
+            - torch.where(has_lb, _c(mu) / dl_w, 0.0) \
+            + torch.where(has_ub, _c(mu) / du_w, 0.0)
+        r_ds = lam_h - _c(mu) / dl_s if q else empty(w)
         r_g = gv
         r_h = hv + s
-        inv_sig_s = 1.0 / torch.clamp(sig_s, min=_TINY) if q else empty
+        inv_sig_s = 1.0 / torch.clamp(sig_s, min=_TINY) if q else empty(w)
         r_h_mod = r_h - r_ds * inv_sig_s
+
+        def bvec(delta):
+            return T(delta).expand(B)
 
         if structured_solve is not None:
             # derivatives + assembly once per Newton step; the retry ladder
@@ -397,7 +442,8 @@ def make_ipm_solver(
 
             def do_solve_rhs(r_dw_, r_g_, r_h_mod_, delta):
                 with _range("kkt.solve"):
-                    return s_solve(kkt_ctx, r_dw_, r_g_, r_h_mod_, T(delta))
+                    return s_solve(kkt_ctx, r_dw_, r_g_, r_h_mod_,
+                                   bvec(delta))
 
             def lag_grad(ww):
                 return (grad_f(ww, p) + jgT_mv(ww, p, lam_g)
@@ -407,16 +453,16 @@ def make_ipm_solver(
                 # Lagrangian Hessian-vector product via jvp of the gradient
                 return torch.func.jvp(lag_grad, (w,), (dx,))[1]
         else:
-            Jg = jac_g(w, p) if m else empty.reshape(0, n)
-            Jh = jac_h(w, p) if q else empty.reshape(0, n)
+            Jg = jac_g(w, p) if m else w.new_zeros((B, 0, n))
+            Jh = jac_h(w, p) if q else w.new_zeros((B, 0, n))
             Hw = hess_fn(w, p, lam_g, lam_h)
 
             def do_solve_rhs(r_dw_, r_g_, r_h_mod_, delta):
                 return solve_kkt(Hw, sig_w, Jg, Jh, inv_sig_s, r_dw_, r_g_,
-                                 r_h_mod_, T(delta))
+                                 r_h_mod_, bvec(delta))
 
             def hvp(dx):
-                return Hw @ dx
+                return (Hw @ dx[..., None])[..., 0]
 
         def do_solve(delta):
             return do_solve_rhs(r_dw, r_g, r_h_mod, delta)
@@ -426,7 +472,7 @@ def make_ipm_solver(
 
         def step_residual(step, delta, Hd):
             dw_, dg_, dh_ = step
-            res_w = (Hd + (sig_w + delta) * dw_ + r_dw
+            res_w = (Hd + (sig_w + _c(delta)) * dw_ + r_dw
                      + jgT_mv(w, p, dg_) + jhT_mv(w, p, dh_))
             out = _maxabs(res_w)
             if m:
@@ -445,57 +491,61 @@ def make_ipm_solver(
             dw_ = step[0]
             bad = ~_all_finite(*step)
             Hd = hvp(dw_)
-            curv = torch.dot(dw_, Hd) + torch.sum((sig_w + delta) * dw_ * dw_)
-            wrong_curv = curv < -1e-10 * (1.0 + torch.dot(dw_, dw_))
+            curv = _dot(dw_, Hd) + ((sig_w + _c(delta)) * dw_ * dw_).sum(-1)
+            wrong_curv = curv < -1e-10 * (1.0 + _dot(dw_, dw_))
             inaccurate = step_residual(step, delta, Hd) > 1e-2 * rhs_norm
             return bad | wrong_curv | inaccurate
 
-        # regularization ladder: escalate the primal regularization while
-        # the step is bad; rung deltas are capped at prox_max.  A rung that
-        # finds the step good ends the ladder: every later rung would test
-        # the same step and skip as well.
+        # regularization ladder: escalate the primal regularization of the
+        # elements whose step is bad; rung deltas are capped at prox_max.
+        # A rung runs when some element needs it, and the others keep their
+        # step; when no element needs a rung, no later rung would run
+        # either (each would test the same steps), so the ladder ends.
         step = do_solve(prox)
         prev_delta = prox
         for mult in (10.0, 1e2, 1e3, 1e5, 1e7)[:st.reg_retries]:
-            if not bool(need_retry(step, prev_delta)):
+            bad = need_retry(step, prev_delta) & live
+            if not bool(bad.any()):
                 break
             delta = torch.clamp(torch.clamp(prox, min=1e-8) * mult,
                                 max=st.prox_max)
-            step = do_solve(delta)
-            prev_delta = delta
+            step = tuple(_sel(bad, new, old)
+                         for new, old in zip(do_solve(delta), step))
+            prev_delta = torch.where(bad, delta, prev_delta)
 
         dw, dlam_g, dlam_h = step
         # non-finite guard: zero the step and escalate the Levenberg prox
         step_ok = _all_finite(dw, dlam_g, dlam_h)
-        dw = torch.where(step_ok, dw, 0.0)
-        dlam_g = torch.where(step_ok, dlam_g, 0.0)
-        dlam_h = torch.where(step_ok, dlam_h, 0.0)
+        dw = _sel(step_ok, dw, torch.zeros_like(dw))
+        dlam_g = _sel(step_ok, dlam_g, torch.zeros_like(dlam_g))
+        dlam_h = _sel(step_ok, dlam_h, torch.zeros_like(dlam_h))
         prev_delta = torch.where(step_ok, prev_delta,
                                  torch.clamp(prox, min=1e-8) * 100.0)
 
         def recover(dw_, dlam_g_, dlam_h_, r_h_used):
-            ds_ = -(r_h_used + jh_mv(w, p, dw_)) if q else empty
-            dlam_ = torch.cat([dlam_g_, dlam_h_])
+            ds_ = -(r_h_used + jh_mv(w, p, dw_)) if q else empty(w)
+            dlam_ = torch.cat([dlam_g_, dlam_h_], -1)
             dzl_w = torch.where(
-                has_lb, _safe_div(mu - zl[:n] * dl_w, dl_w)
-                - _safe_div(zl[:n] * dw_, dl_w), 0.0)
-            dzl_s = _safe_div(mu - zl[n:] * dl_s, dl_s) \
-                - _safe_div(zl[n:] * ds_, dl_s) if q else empty
+                has_lb, _safe_div(_c(mu) - zl[:, :n] * dl_w, dl_w)
+                - _safe_div(zl[:, :n] * dw_, dl_w), 0.0)
+            dzl_s = _safe_div(_c(mu) - zl[:, n:] * dl_s, dl_s) \
+                - _safe_div(zl[:, n:] * ds_, dl_s) if q else empty(w)
             dzu_w = torch.where(
-                has_ub, _safe_div(mu - zu[:n] * du_w, du_w)
-                + _safe_div(zu[:n] * dw_, du_w), 0.0)
-            return (dw_, ds_, dlam_, torch.cat([dzl_w, dzl_s]),
-                    torch.cat([dzu_w, torch.zeros_like(dzl_s)]))
+                has_ub, _safe_div(_c(mu) - zu[:, :n] * du_w, du_w)
+                + _safe_div(zu[:, :n] * dw_, du_w), 0.0)
+            return (dw_, ds_, dlam_, torch.cat([dzl_w, dzl_s], -1),
+                    torch.cat([dzu_w, torch.zeros_like(dzl_s)], -1))
 
         def resolve_soc(alpha):
             """Second-order correction: re-solve with the constraint value
             at the trial point."""
-            w_t = w + alpha * dw
+            w_t = w + _c(alpha) * dw
             gv_t, hv_t = eval_all(w_t, p)
-            r_g_soc = alpha * r_g + gv_t
-            r_h_soc = alpha * r_h + hv_t + (
-                s + alpha * (-(r_h + jh_mv(w, p, dw))) if q else empty)
-            r_h_mod_soc = r_h_soc - r_ds * inv_sig_s if q else empty
+            r_g_soc = _c(alpha) * r_g + gv_t
+            r_h_soc = _c(alpha) * r_h + hv_t + (
+                s + _c(alpha) * (-(r_h + jh_mv(w, p, dw))) if q
+                else empty(w))
+            r_h_mod_soc = r_h_soc - r_ds * inv_sig_s if q else empty(w)
             dw2, dg2, dh2 = do_solve_rhs(r_dw, r_g_soc, r_h_mod_soc,
                                          prev_delta)
             return recover(dw2, dg2, dh2, r_h_soc)
@@ -515,16 +565,17 @@ def make_ipm_solver(
     def max_alpha(x, dx, dist, active):
         ratio = torch.where(active & (dx < 0),
                             -dist / torch.where(dx == 0, -1.0, dx), inf)
-        out = torch.ones((), dtype=dtype, device=device)
-        return torch.minimum(out, ratio.amin()) if ratio.numel() else out
+        out = x.new_ones(x.shape[:-1])
+        return torch.minimum(out, ratio.amin(-1)) if ratio.shape[-1] \
+            else out
 
     def dual_alpha(zl, zu, dzl, dzu, mu):
-        tau = torch.clamp(1.0 - mu, min=st.tau_min)
+        tau = _c(torch.clamp(1.0 - mu, min=st.tau_min))
         a_d = max_alpha(zl, dzl, tau * zl, mask_l)
         return torch.minimum(a_d, max_alpha(zu, dzu, tau * zu, mask_zu))
 
     def fraction_to_boundary(w, s, dw, ds, zl, zu, dzl, dzu, mu):
-        tau = torch.clamp(1.0 - mu, min=st.tau_min)
+        tau = _c(torch.clamp(1.0 - mu, min=st.tau_min))
         dl_w, dl_s = dist_l(w, s)
         du_w = dist_u(w)
         a_p = max_alpha(w, dw, tau * dl_w, has_lb)
@@ -536,8 +587,9 @@ def make_ipm_solver(
     # -- main loop ----------------------------------------------------------
     slots = torch.arange(st.filter_size, device=device)
 
-    def take_step(stt, p, pre, res0, err_mu):
-        """One globalized iteration from a non-converged state."""
+    def take_step(stt, p, pre, res0, err_mu, live):
+        """One globalized iteration; the results of elements outside
+        ``live`` are discarded by the caller."""
         w, s, lam, zl, zu, mu = stt.w, stt.s, stt.lam, stt.zl, stt.zu, stt.mu
         # barrier update when the inner problem is solved
         shrink = err_mu <= st.kappa_eps * mu
@@ -548,28 +600,29 @@ def make_ipm_solver(
             mu)
         # filter reset on barrier decrease (W-B reinitialize)
         mu_dec = mu_new < mu
-        filt_th0 = torch.where(mu_dec, inf, stt.filt_th)
-        filt_ph0 = torch.where(mu_dec, inf, stt.filt_ph)
+        filt_th0 = torch.where(_c(mu_dec), inf, stt.filt_th)
+        filt_ph0 = torch.where(_c(mu_dec), inf, stt.filt_ph)
         filt_n0 = torch.where(mu_dec, 0, stt.filt_n)
 
         with _range("ipm.newton"):
             (dw, ds, dlam, dzl, dzu, resolve_soc, delta_used,
              resolve_resto) = newton_step(w, s, lam, zl, zu, p, mu_new,
-                                          stt.prox, pre)
+                                          stt.prox, pre, live)
         # dual trust region: primal acceptance cannot see multiplier
         # explosions, so bound them here
         dl_norm = _maxabs(dlam)
         l_norm = _maxabs(lam)
-        dlam = dlam * torch.clamp(st.dual_cap * (1.0 + l_norm)
-                                  / torch.clamp(dl_norm, min=_TINY), max=1.0)
+        dlam = dlam * _c(torch.clamp(st.dual_cap * (1.0 + l_norm)
+                                     / torch.clamp(dl_norm, min=_TINY),
+                                     max=1.0))
         a_p, a_d = fraction_to_boundary(w, s, dw, ds, zl, zu, dzl, dzu,
                                         mu_new)
         err_ref = err_from(res0, mu_new)
 
         def kkt_decrease(alpha, dw_, ds_, dlam_, dzl_, dzu_, a_d_):
-            err_t = kkt_error(w + alpha * dw_, s + alpha * ds_,
-                              lam + alpha * dlam_, zl + a_d_ * dzl_,
-                              zu + a_d_ * dzu_, p, mu_new)
+            err_t = kkt_error(w + _c(alpha) * dw_, s + _c(alpha) * ds_,
+                              lam + _c(alpha) * dlam_, zl + _c(a_d_) * dzl_,
+                              zu + _c(a_d_) * dzu_, p, mu_new)
             return torch.isfinite(err_t) & (err_t < 0.99 * err_ref)
 
         theta_k = constraint_violation(pre[1], pre[2], s)
@@ -580,28 +633,28 @@ def make_ipm_solver(
             dlw_, dls_ = dist_l(w, s)
             duw_ = dist_u(w)
             gphi_w = pre[0] \
-                - torch.where(has_lb, mu_new / torch.clamp(dlw_, min=_TINY),
-                              0.0) \
-                + torch.where(has_ub, mu_new / torch.clamp(duw_, min=_TINY),
-                              0.0)
-            out = torch.dot(gphi_w, dw_)
+                - torch.where(has_lb,
+                              _c(mu_new) / torch.clamp(dlw_, min=_TINY), 0.0) \
+                + torch.where(has_ub,
+                              _c(mu_new) / torch.clamp(duw_, min=_TINY), 0.0)
+            out = _dot(gphi_w, dw_)
             if q:
-                out = out + torch.dot(
-                    -mu_new / torch.clamp(dls_, min=_TINY), ds_)
+                out = out + _dot(
+                    -_c(mu_new) / torch.clamp(dls_, min=_TINY), ds_)
             return out
 
         def accept_fn(alpha, dw_, ds_, gphi_d_):
             """W-B acceptance: acceptable to the filter AND either (f-type:
             switching holds -> Armijo on phi) or (h-type: sufficient
             decrease in theta or phi).  Returns (ok, f_type)."""
-            w_t = w + alpha * dw_
-            s_t = s + alpha * ds_
+            w_t = w + _c(alpha) * dw_
+            s_t = s + _c(alpha) * ds_
             phi_t = barrier_value(w_t, s_t, p, mu_new)
             gv_t, hv_t = eval_all(w_t, p)
             th_t = constraint_violation(gv_t, hv_t, s_t)
             fil_ok = torch.all(
-                (th_t <= (1.0 - st.gamma_theta) * filt_th0)
-                | (phi_t <= filt_ph0 - st.gamma_phi * filt_th0))
+                (_c(th_t) <= (1.0 - st.gamma_theta) * filt_th0)
+                | (_c(phi_t) <= filt_ph0 - st.gamma_phi * filt_th0), -1)
             sw = (gphi_d_ < 0) & (theta_k <= stt.th_min) & (
                 alpha * (-gphi_d_) ** st.s_phi
                 > st.delta_switch * theta_k ** st.s_theta)
@@ -615,11 +668,16 @@ def make_ipm_solver(
 
         # full step if acceptable; else one second-order correction; else
         # backtracking.  KKT-error decrease is an OR-acceptance that counts
-        # as f-type; it only matters when the filter test is not already
-        # an f-type acceptance.
+        # as f-type; it only matters where the filter test is not already
+        # an f-type acceptance, so it is computed when some element needs
+        # it and selected.
         acc0, ft0 = accept_fn(a_p, dw, ds, gphi_dot(dw, ds))
-        kd0 = torch.ones_like(acc0) if bool(acc0 & ft0) else \
-            kkt_decrease(a_p, dw, ds, dlam, dzl, dzu, a_d)
+        need_kd = ~(acc0 & ft0)
+        kd0 = _cond_any(need_kd & live,
+                        lambda: kkt_decrease(a_p, dw, ds, dlam, dzl, dzu,
+                                             a_d),
+                        torch.zeros_like(acc0))
+        kd0 = torch.where(need_kd, kd0, True)
         ok_full = acc0 | kd0
         f_type = ft0 | kd0
 
@@ -636,14 +694,14 @@ def make_ipm_solver(
                   ds, dlam, dzl, dzu, a_p, a_d)
         if st.use_soc:
             (soc_ok, soc_ft, dw2, ds2, dlam2, dzl2, dzu2, a_p2,
-             a_d2) = _cond_any(~ok_full, do_soc, no_soc)
+             a_d2) = _cond_any(~ok_full & live, do_soc, no_soc)
         else:
             (soc_ok, soc_ft, dw2, ds2, dlam2, dzl2, dzu2, a_p2,
              a_d2) = no_soc
         use_soc = (~ok_full) & soc_ok
 
         def pick(a, b):
-            return torch.where(use_soc, b, a)
+            return _sel(use_soc, b, a)
 
         dw, ds, dlam = pick(dw, dw2), pick(ds, ds2), pick(dlam, dlam2)
         dzl, dzu = pick(dzl, dzl2), pick(dzu, dzu2)
@@ -651,7 +709,9 @@ def make_ipm_solver(
         f_type = pick(f_type, soc_ft)
 
         # filter backtracking line search, seeded with the full-step
-        # decision: accepted steps take zero trips
+        # decision: accepted elements take zero trips, and it runs while
+        # some element is unfinished, finished elements frozen (the JAX
+        # while_loop under vmap)
         gphi_d = gphi_dot(dw, ds)
         gneg = -torch.clamp(gphi_d, max=0.0)
         amin2 = torch.where(
@@ -664,12 +724,18 @@ def make_ipm_solver(
         alpha_min = st.gamma_alpha * torch.minimum(
             torch.clamp(amin2, max=st.gamma_theta), amin3)
 
-        alpha, ls_done, k = a_p, ok_full | use_soc, 0
-        while not bool(ls_done) and k < st.ls_max \
-                and bool(alpha * 0.5 >= alpha_min):
-            alpha = alpha * 0.5
-            ls_done, f_type = accept_fn(alpha, dw, ds, gphi_d)
-            k += 1
+        alpha, ls_done = a_p, ok_full | use_soc
+        k = torch.zeros_like(stt.it)
+        while True:
+            go = ~ls_done & (k < st.ls_max) & (alpha * 0.5 >= alpha_min)
+            if not bool((go & live).any()):
+                break
+            a_try = alpha * 0.5
+            ok_t, ft_t = accept_fn(a_try, dw, ds, gphi_d)
+            alpha = torch.where(go, a_try, alpha)
+            f_type = torch.where(go, ft_t, f_type)
+            ls_done = ls_done | (go & ok_t)
+            k = k + go
         ls_failed = ~ls_done
         alpha = torch.where(ls_failed, 0.0, alpha)
 
@@ -683,28 +749,32 @@ def make_ipm_solver(
         def do_resto():
             dwr, dsr, _, dzlr, dzur = resolve_resto()
             fin = _all_finite(dwr, dsr, dzlr, dzur)
-            dwr, dsr = torch.where(fin, dwr, 0.0), torch.where(fin, dsr, 0.0)
-            dzlr = torch.where(fin, dzlr, 0.0)
-            dzur = torch.where(fin, dzur, 0.0)
+            dwr = _sel(fin, dwr, torch.zeros_like(dwr))
+            dsr = _sel(fin, dsr, torch.zeros_like(dsr))
+            dzlr = _sel(fin, dzlr, torch.zeros_like(dzlr))
+            dzur = _sel(fin, dzur, torch.zeros_like(dzur))
             a_pr, a_dr = fraction_to_boundary(w, s, dwr, dsr, zl, zu, dzlr,
                                               dzur, mu_new)
-            al, r_ok, kk = a_pr, torch.zeros_like(use_resto), 0
-            while not bool(r_ok) and kk < 12:
-                s_t = s + al * dsr
-                gv_t, hv_t = eval_all(w + al * dwr, p)
+            al, r_ok = a_pr, ~use_resto
+            for _ in range(12):
+                go = ~r_ok
+                if not bool((go & live).any()):
+                    break
+                s_t = s + _c(al) * dsr
+                gv_t, hv_t = eval_all(w + _c(al) * dwr, p)
                 th_t = constraint_violation(gv_t, hv_t, s_t)
                 ok_t = torch.isfinite(th_t) & (
                     th_t <= (1.0 - 1e-4 * al) * theta_k)
-                al = torch.where(ok_t, al, al * 0.5)
-                r_ok = ok_t
-                kk += 1
+                al = torch.where(go & ~ok_t, al * 0.5, al)
+                r_ok = r_ok | (go & ok_t)
             return dwr, dsr, dzlr, dzur, al, a_dr, r_ok
 
         zero_r = (torch.zeros_like(dw), torch.zeros_like(ds),
                   torch.zeros_like(dzl), torch.zeros_like(dzu),
-                  T(0.0), T(0.0), torch.zeros_like(use_resto))
+                  torch.zeros_like(alpha), torch.zeros_like(alpha),
+                  torch.zeros_like(use_resto))
         dwr, dsr, dzlr, dzur, al_r, a_dr, r_ok = \
-            _cond_any(use_resto, do_resto, zero_r) if st.use_resto \
+            _cond_any(use_resto & live, do_resto, zero_r) if st.use_resto \
             else zero_r
         use_resto = use_resto & r_ok
         alpha = torch.where(use_resto, 0.0, alpha)
@@ -713,36 +783,37 @@ def make_ipm_solver(
         fallback = ls_failed & ~use_resto
         alpha = torch.where(
             fallback, torch.maximum(alpha_min, a_p * 0.5 ** st.ls_max), alpha)
-        w_n = w + alpha * dw
-        s_n = s + alpha * ds
+        w_n = w + _c(alpha) * dw
+        s_n = s + _c(alpha) * ds
         # select-gated, not multiplicative: 0 * NaN = NaN
-        w_n = torch.where(use_resto, w_n + al_r * dwr, w_n)
-        s_n = torch.where(use_resto, s_n + al_r * dsr, s_n)
-        lam_n = lam + alpha * dlam
+        w_n = _sel(use_resto, w_n + _c(al_r) * dwr, w_n)
+        s_n = _sel(use_resto, s_n + _c(al_r) * dsr, s_n)
+        lam_n = lam + _c(alpha) * dlam
         eff_ad = torch.where(use_resto, a_dr, a_d)
-        zl_n = zl + eff_ad * torch.where(use_resto, dzlr, dzl)
-        zu_n = zu + eff_ad * torch.where(use_resto, dzur, dzu)
+        zl_n = zl + _c(eff_ad) * _sel(use_resto, dzlr, dzl)
+        zu_n = zu + _c(eff_ad) * _sel(use_resto, dzur, dzu)
         # keep duals sane relative to the barrier (IPOPT's kappa_Sigma)
         dl_w, dl_s = dist_l(w_n, s_n)
-        dl = torch.clamp(torch.cat([dl_w, dl_s]), min=_TINY)
+        dl = torch.clamp(torch.cat([dl_w, dl_s], -1), min=_TINY)
         kap = 1e10
-        zl_c = torch.minimum(torch.maximum(zl_n, mu_new / (kap * dl)),
-                             kap * mu_new / dl)
+        zl_c = torch.minimum(torch.maximum(zl_n, _c(mu_new) / (kap * dl)),
+                             kap * _c(mu_new) / dl)
         du = torch.clamp(torch.cat([dist_u(w_n),
-                                    torch.full((q,), inf, dtype=dtype,
-                                               device=device)]), min=_TINY)
+                                    torch.full_like(s_n, inf)], -1),
+                         min=_TINY)
         zu_c = torch.where(
-            mask_zu, torch.minimum(torch.maximum(zu_n, mu_new / (kap * du)),
-                                   kap * mu_new / du), 0.0)
+            mask_zu, torch.minimum(torch.maximum(zu_n,
+                                                 _c(mu_new) / (kap * du)),
+                                   kap * _c(mu_new) / du), 0.0)
 
         # filter augmentation (W-B A-6): h-type acceptances and line-search
         # failures at infeasible points carve out (theta, phi)
         add_entry = ((~ls_failed) & (~f_type)) \
             | (ls_failed & (theta_k > 1e-12))
-        slot_hot = (slots == filt_n0 % st.filter_size) & add_entry
-        filt_th1 = torch.where(slot_hot, (1.0 - st.gamma_theta) * theta_k,
+        slot_hot = (slots == _c(filt_n0 % st.filter_size)) & _c(add_entry)
+        filt_th1 = torch.where(slot_hot, _c((1.0 - st.gamma_theta) * theta_k),
                                filt_th0)
-        filt_ph1 = torch.where(slot_hot, phi_k - st.gamma_phi * theta_k,
+        filt_ph1 = torch.where(slot_hot, _c(phi_k - st.gamma_phi * theta_k),
                                filt_ph0)
         filt_n1 = filt_n0 + add_entry.to(filt_n0.dtype)
         # per-iteration regularization: the successful delta decays
@@ -753,26 +824,33 @@ def make_ipm_solver(
         return (w_n, s_n, lam_n, zl_c, zu_c, mu_new, prox_n, filt_th1,
                 filt_ph1, filt_n1)
 
-    def body(stt, p):
+    def body(stt, p, active):
+        """One loop pass; the caller keeps its results for ``active``
+        elements only."""
         w, s, lam, zl, zu = stt.w, stt.s, stt.lam, stt.zl, stt.zu
         with _range("ipm.evals"):
             pre = point_evals(w, lam, p)
             res0 = kkt_residuals(w, s, lam, zl, zu, p, pre=pre)
             err_0 = err_from(res0, 0.0)
             converged = err_0 <= st.tol
-        if bool(converged):
-            # a converged state is frozen (the JAX body computes the step
-            # and discards it); the loop exits after this pass
-            new = (w, s, lam, zl, zu, stt.mu, stt.prox, stt.filt_th,
-                   stt.filt_ph, stt.filt_n)
-        else:
+        old = (w, s, lam, zl, zu, stt.mu, stt.prox, stt.filt_th,
+               stt.filt_ph, stt.filt_n)
+        live = active & ~converged
+        if bool(live.any()):
+            # a converged element is frozen (the JAX body computes its
+            # step and discards it); it leaves the loop after this pass
             with _range("ipm.step"):
-                new = take_step(stt, p, pre, res0, err_from(res0, stt.mu))
+                new = take_step(stt, p, pre, res0, err_from(res0, stt.mu),
+                                live)
+            solve.newton_steps += 1
+            new = tuple(_sel(converged, o, nw) for o, nw in zip(old, new))
+        else:
+            new = old
         (w_n, s_n, lam_n, zl_n, zu_n, mu_n, prox_n, fth, fph, fn) = new
         # watchdog: remember the best-seen iterate by true KKT error
         improve = err_0 < stt.best_err
-        best_n = tuple(torch.where(improve, cur, old)
-                       for cur, old in zip((w, s, lam, zl, zu), stt.best))
+        best_n = tuple(_sel(improve, cur, old_)
+                       for cur, old_ in zip((w, s, lam, zl, zu), stt.best))
         return IPMState(
             w=w_n, s=s_n, lam=lam_n, zl=zl_n, zu=zu_n, mu=mu_n,
             it=stt.it + 1, converged=converged, kkt_err=err_0, prox=prox_n,
@@ -780,12 +858,24 @@ def make_ipm_solver(
             filt_th=fth, filt_ph=fph, filt_n=fn, th_max=stt.th_max,
             th_min=stt.th_min)
 
+    def freeze(active, new, old):
+        out = []
+        for nw, o in zip(new, old):
+            if isinstance(o, tuple):
+                out.append(tuple(_sel(active, a, b) for a, b in zip(nw, o)))
+            else:
+                out.append(_sel(active, nw, o))
+        return IPMState(*out)
+
     def solver_loop(state, p):
-        while not bool(state.converged) and state.it < st.max_iter:
-            state = body(state, p)
-        return state
+        while True:
+            active = ~state.converged & (state.it < st.max_iter)
+            if not bool(active.any()):
+                return state
+            state = freeze(active, body(state, p, active), state)
 
     def init_state(w0, p, lam0=None, mu0=None, zl0=None, zu0=None):
+        B = w0.shape[0]
         # push the initial point into the interior (IPOPT bound_push/frac)
         k1, k2 = st.bound_push, st.bound_frac
         lo = torch.where(has_lb, lb, -inf)
@@ -799,35 +889,36 @@ def make_ipm_solver(
                                                         -inf)),
                           torch.where(has_ub, hi - pu, inf))
         _, hv = eval_all(w, p)
-        s = torch.clamp(-hv, min=st.slack_min) if q else empty
-        mu = T(st.mu_init if mu0 is None else mu0)
-        lam = torch.zeros((m + q,), dtype=dtype, device=device) \
-            if lam0 is None else lam0
+        s = torch.clamp(-hv, min=st.slack_min) if q else empty(w)
+        mu = T(st.mu_init if mu0 is None else mu0).expand(B).clone()
+        lam = w.new_zeros((B, m + q)) if lam0 is None else lam0
         z0v = st.z_init
         zl = torch.cat([torch.where(has_lb, z0v, 0.0),
-                        torch.full((q,), z0v, dtype=dtype, device=device)])
+                        torch.full((q,), z0v, dtype=dtype, device=device)]
+                       ).expand(B, n + q)
         zu = torch.cat([torch.where(has_ub, z0v, 0.0),
-                        torch.zeros((q,), dtype=dtype, device=device)])
+                        torch.zeros((q,), dtype=dtype, device=device)]
+                       ).expand(B, n + q)
         # warm entries the previous solve zeroed restart at z_init
         if zl0 is not None:
-            zl = torch.where(zl0 > 1e-12, torch.maximum(zl0, mu / 1e8),
+            zl = torch.where(zl0 > 1e-12, torch.maximum(zl0, _c(mu) / 1e8),
                              torch.where(mask_l, zl, 0.0))
         if zu0 is not None:
-            zu = torch.where(zu0 > 1e-12, torch.maximum(zu0, mu / 1e8),
+            zu = torch.where(zu0 > 1e-12, torch.maximum(zu0, _c(mu) / 1e8),
                              torch.where(mask_zu, zu, 0.0))
         gv0, hv0 = eval_all(w, p)
         theta0 = constraint_violation(gv0, hv0, s)
         theta0 = torch.where(torch.isfinite(theta0), theta0, 1.0)
+        full = w.new_full((B,), inf)
         return IPMState(
-            w=w, s=s, lam=lam, zl=zl, zu=zu, mu=mu, it=0,
-            converged=torch.zeros((), dtype=torch.bool, device=device),
-            kkt_err=T(inf), prox=T(0.0), best=(w, s, lam, zl, zu),
-            best_err=T(inf),
-            filt_th=torch.full((st.filter_size,), inf, dtype=dtype,
-                               device=device),
-            filt_ph=torch.full((st.filter_size,), inf, dtype=dtype,
-                               device=device),
-            filt_n=torch.zeros((), dtype=torch.int64, device=device),
+            w=w, s=s, lam=lam, zl=zl, zu=zu, mu=mu,
+            it=torch.zeros((B,), dtype=torch.int64, device=device),
+            converged=torch.zeros((B,), dtype=torch.bool, device=device),
+            kkt_err=full, prox=w.new_zeros((B,)), best=(w, s, lam, zl, zu),
+            best_err=full,
+            filt_th=w.new_full((B, st.filter_size), inf),
+            filt_ph=w.new_full((B, st.filter_size), inf),
+            filt_n=torch.zeros((B,), dtype=torch.int64, device=device),
             th_max=1e4 * torch.clamp(theta0, min=1.0),
             th_min=1e-4 * torch.clamp(theta0, min=1.0))
 
@@ -838,49 +929,51 @@ def make_ipm_solver(
     BIG = 1e10
 
     def polish(w, s, lam, zl, zu, p):
+        B = w.shape[0]
         dl_w = torch.where(has_lb, w - lb, inf)
         du_w = torch.where(has_ub, ub - w, inf)
-        act_lb = has_lb & (zl[:n] > dl_w)
-        act_ub = has_ub & (zu[:n] > du_w)
-        act_h = (zl[n:] > s) if q else zeros_qb
+        act_lb = has_lb & (zl[:, :n] > dl_w)
+        act_ub = has_ub & (zu[:, :n] > du_w)
+        act_h = (zl[:, n:] > s) if q else zl.new_zeros((B, 0), dtype=bool)
         act_b = act_lb | act_ub
         target = torch.where(act_ub, ub, torch.where(act_lb, lb, 0.0))
         target = torch.where(torch.isfinite(target), target, 0.0)
+        zero = w.new_zeros((B,))
         w_, lam_ = w, lam
         for _ in range(3):
-            lam_g, lam_h = lam_[:m], lam_[m:]
+            lam_g, lam_h = lam_[:, :m], lam_[:, m:]
             r_dw = grad_f(w_, p) + jgT_mv(w_, p, lam_g) \
                 + jhT_mv(w_, p, lam_h) \
                 + BIG * torch.where(act_b, w_ - target, 0.0)
             r_g, hv = eval_all(w_, p)
             # active ineq -> equality (inv_sig 0); inactive -> lam -> 0
-            inv_sig = torch.where(act_h, 0.0, BIG) if q else empty
+            inv_sig = torch.where(act_h, 0.0, BIG) if q else empty(w)
             r_h_mod = hv - lam_h * inv_sig
             sig_pol = torch.where(act_b, BIG, 0.0)
             if structured_solve is not None:
                 ctx_ = structured_solve[0](w_, p, lam_g, lam_h, sig_pol,
                                            inv_sig)
                 dw_, dg_, dh_ = structured_solve[1](ctx_, r_dw, r_g,
-                                                    r_h_mod, T(0.0))
+                                                    r_h_mod, zero)
             else:
-                Jg_ = jac_g(w_, p) if m else empty.reshape(0, n)
-                Jh_ = jac_h(w_, p) if q else empty.reshape(0, n)
+                Jg_ = jac_g(w_, p) if m else w.new_zeros((B, 0, n))
+                Jh_ = jac_h(w_, p) if q else w.new_zeros((B, 0, n))
                 dw_, dg_, dh_ = solve_kkt(
                     hess_fn(w_, p, lam_g, lam_h), sig_pol, Jg_, Jh_,
-                    inv_sig, r_dw, r_g, r_h_mod, T(0.0))
+                    inv_sig, r_dw, r_g, r_h_mod, zero)
             good = _all_finite(dw_, dg_, dh_)
-            w_ = torch.where(good, w_ + dw_, w_)
-            lam_ = torch.where(good, lam_ + torch.cat([dg_, dh_]), lam_)
+            w_ = _sel(good, w_ + dw_, w_)
+            lam_ = _sel(good, lam_ + torch.cat([dg_, dh_], -1), lam_)
         # bound duals and slacks consistent with the polished point
-        lam_gp, lam_hp = lam_[:m], lam_[m:]
+        lam_gp, lam_hp = lam_[:, :m], lam_[:, m:]
         r_stat = grad_f(w_, p) + jgT_mv(w_, p, lam_gp) \
             + jhT_mv(w_, p, lam_hp)
         zl_p = torch.cat([
             torch.where(act_lb, torch.clamp(r_stat, min=0.0), 0.0),
-            torch.where(act_h, torch.clamp(lam_hp, min=0.0), 0.0)])
+            torch.where(act_h, torch.clamp(lam_hp, min=0.0), 0.0)], -1)
         zu_p = torch.cat([
             torch.where(act_ub, torch.clamp(-r_stat, min=0.0), 0.0),
-            torch.zeros((q,), dtype=dtype, device=device)])
+            w.new_zeros((B, q))], -1)
         w_cl = torch.minimum(torch.maximum(w_, torch.where(has_lb, lb, -inf)),
                              torch.where(has_ub, ub, inf))
         _, hv_p = eval_all(w_cl, p)
@@ -888,9 +981,9 @@ def make_ipm_solver(
         return w_cl, s_p, lam_, zl_p, zu_p
 
     def _select(cond, a, b):
-        return tuple(torch.where(cond, y, x) for x, y in zip(a, b))
+        return tuple(_sel(cond, y, x) for x, y in zip(a, b))
 
-    def solve(w0, p, lam0=None, mu0=None, zl0=None, zu0=None):
+    def solve_batch(w0, p, lam0, mu0, zl0, zu0):
         state = init_state(w0, p, lam0=lam0, mu0=mu0, zl0=zl0, zu0=zu0)
         final = solver_loop(state, p)
         cur = (final.w, final.s, final.lam, final.zl, final.zu)
@@ -921,4 +1014,12 @@ def make_ipm_solver(
             kkt_err=err_f, iterations=final.it,
             success=final.converged | (err_f <= st.tol))
 
+    def solve(w0, p, lam0=None, mu0=None, zl0=None, zu0=None):
+        def to(x):
+            return None if x is None else torch.as_tensor(
+                x, dtype=dtype, device=device)
+        w0, p, lam0, zl0, zu0 = map(to, (w0, p, lam0, zl0, zu0))
+        return solve_batch(w0, p, lam0, mu0, zl0, zu0)
+
+    solve.newton_steps = 0
     return solve

@@ -75,3 +75,11 @@ def cstr_robust_mpc(n_horizon=20, n_robust=1, kkt_solver="auto",
 
 
 CSTR_X0 = np.array([0.8, 0.5, 134.14, 130.0])
+
+
+def bench_states(B, seed=0):
+    """B plant states for batched serving, as the JAX package's bench.py
+    draws them (l.39-46): 2 % noise around ``CSTR_X0``, clipped."""
+    rng = np.random.default_rng(seed)
+    x0s = CSTR_X0[None, :] * (1.0 + 0.02 * rng.standard_normal((B, 4)))
+    return np.clip(x0s, [0.15, 0.15, 55, 55], [1.9, 1.9, 139.5, 139.5])

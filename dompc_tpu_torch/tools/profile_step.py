@@ -1,20 +1,28 @@
-"""Where one warm ``make_step`` of the flagship spends its time on the card.
+"""Where one warm ``make_step`` (or one warm batched call) of the flagship
+spends its time on the card.
 
-    python3 -m dompc_tpu_torch.tools.profile_step [--x64] [--out FILE]
+    python3 -m dompc_tpu_torch.tools.profile_step [--x64] [--batch B]
+        [--out FILE]
 
 Builds the flagship robust CSTR NMPC (N=20, 9 scenarios) on ``cuda``
 (float32 with ``solver_tol=1e-4``, 60 iterations; float64 with the default
 settings under ``--x64``), takes a cold and two warm steps unprofiled, then
-one more warm step under ``torch.profiler``.  Prints, and writes as JSON to
-``--out`` when given:
+one more warm step under ``torch.profiler``.  With ``--batch B`` the same
+is done for ``parallel.make_batch_solver`` on B of bench.py's states
+(throughput mode, tol 1e-3, 60 iterations; every warm call starts from the
+cold call's solution with x0 moved by 1e-3 and mu0 = 1e-4, so the
+profiled call is the warm call chip_smoke.py times;
+``DOMPC_TPU_BAND_BACKEND`` picks the band kernel).  Prints, and writes as
+JSON to ``--out`` when given:
 
-* the unprofiled warm step's wall time and iterations;
+* the unprofiled warm step's (call's) wall time and iterations (the
+  batch's mean and max);
 * the profiled step's wall time, the device's busy time (union of the
   kernels' intervals) and its idle share, and the busy time over the
   unprofiled step's wall time where both steps took as many iterations
   (the profiler slows the host, not the kernels);
 * kernel launches in the step, and the device time by kernel name (top 15),
-  with the band-QR kernel's share;
+  with the band kernels' time and launches;
 * host time in the solver's annotated ranges (inclusive: ``kkt.solve`` and
   ``kkt.bbd_solve`` also run inside ``ipm.step`` and ``ipm.polish``);
 * the card's name and power limit (``nvidia-smi``).
@@ -55,31 +63,22 @@ def _union_us(intervals):
     return total
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--x64", action="store_true")
-    ap.add_argument("--out", default=None)
-    args = ap.parse_args(argv)
-    if args.x64:
-        os.environ["DOMPC_TPU_X64"] = "1"
-    else:
-        os.environ.pop("DOMPC_TPU_X64", None)
-    os.environ.pop("DOMPC_TPU_PLATFORM", None)
-    import torch
-    if not torch.cuda.is_available():
-        sys.exit("profile_step: CUDA is not available")
-    from torch.profiler import ProfilerActivity, profile
-    from dompc_tpu_torch.solver import band_qr
+def _flagship(x64):
     from dompc_tpu_torch.systems import cstr_robust_mpc, CSTR_X0
-
-    dname = "float64" if args.x64 else "float32"
     mpc = cstr_robust_mpc(n_horizon=20, n_robust=1)
-    if not args.x64:
+    if not x64:
         mpc.settings.solver_tol = 1e-4
         mpc.settings.solver_max_iter = 60
         mpc._create_solver()
     mpc.x0 = CSTR_X0
     mpc.set_initial_guess()
+    return mpc
+
+
+def _step_fn(mpc):
+    """One closed-loop make_step per call -> (ms, iterations)."""
+    import torch
+    from dompc_tpu_torch.systems import CSTR_X0
     L = mpc.layout
     x0 = CSTR_X0.copy()
 
@@ -92,15 +91,69 @@ def main(argv=None):
         x0 = np.asarray(mpc.opt_x_num[L.sl(("x_node", 1, 0))]) \
             * mpc._x_scaling.data
         return ms, mpc.solver_stats["iter_count"]
+    return step
 
+
+def _batch_fn(mpc, B):
+    """One batched call per call -> (ms, (mean iterations, max
+    iterations)).  The first call is cold; every later one is the same warm
+    call from the cold solution, the warm call that chip_smoke.py times."""
+    import torch
+    from dompc_tpu_torch.parallel import (make_batch_solver,
+                                          initial_guess_from_x0)
+    from dompc_tpu_torch.systems import bench_states
+    x0s = bench_states(B)
+    W = initial_guess_from_x0(mpc, x0s)
+    solve = make_batch_solver(mpc, tol=1e-3, max_iter=60,
+                              throughput_mode=True)
+    cold = None
+
+    def call():
+        nonlocal cold
+        t0 = time.perf_counter()
+        if cold is None:
+            sol = cold = solve(x0s, W)[0]
+        else:
+            sol, _ = solve(x0s * (1.0 + 1e-3), cold.w, cold.lam, 1e-4,
+                           cold.zl, cold.zu)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        it = sol.iterations.float()
+        return ms, (float(it.mean()), int(it.max()))
+    return call
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--x64", action="store_true")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="profile a batched call of B instances")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if args.x64:
+        os.environ["DOMPC_TPU_X64"] = "1"
+    else:
+        os.environ.pop("DOMPC_TPU_X64", None)
+    os.environ.pop("DOMPC_TPU_PLATFORM", None)
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("profile_step: CUDA is not available")
+    from torch.profiler import ProfilerActivity, profile
+    from dompc_tpu_torch.solver import band_qr
+
+    dname = "float64" if args.x64 else "float32"
+    mpc = _flagship(args.x64)
+    step = _batch_fn(mpc, args.batch) if args.batch else _step_fn(mpc)
     step()                       # cold
     step()
     warm_ms, warm_iters = step()
-    launches0 = band_qr.band_solve.launches
+    band = {"band_qr": band_qr.band_solve,
+            "band_sweep_tiled": band_qr.band_solve_tiled}
+    launches0 = {k: fn.launches for k, fn in band.items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         prof_ms, prof_iters = step()
-    band_launches = band_qr.band_solve.launches - launches0
+    band_launches = {k: fn.launches - launches0[k] for k, fn in band.items()}
 
     events = prof.events()
     kernels = [e for e in events
@@ -123,22 +176,25 @@ def main(argv=None):
         d[0] += 1
         d[1] += e.time_range.end - e.time_range.start
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
-    band_us = sum(v[1] for k, v in by_name.items() if "band_qr" in k)
+    band_us = {k: sum(v[1] for name, v in by_name.items() if k in name)
+               for k in band}
     rec = dict(
-        card=_card(), dtype=dname,
+        card=_card(), dtype=dname, batch=args.batch or None,
         warm_step_ms=warm_ms, warm_step_iters=warm_iters,
         profiled_step_ms=prof_ms, profiled_step_iters=prof_iters,
-        kernel_launches=len(kernels), band_qr_launches=band_launches,
+        kernel_launches=len(kernels), band_launches=band_launches,
         device_busy_ms=busy_us / 1e3,
         device_idle_share=(1.0 - busy_us / 1e3 / prof_ms) if kernels
         else None,
         busy_share_of_unprofiled_step=(busy_us / 1e3 / warm_ms)
         if kernels and warm_iters == prof_iters else None,
-        band_qr_device_ms=band_us / 1e3,
+        band_device_ms={k: v / 1e3 for k, v in band_us.items()},
         host_ranges={k: dict(count=v[0], ms=v[1] / 1e3)
                      for k, v in sorted(ranges.items())},
         top_kernels=[dict(name=k[:90], count=v[0], device_ms=v[1] / 1e3)
                      for k, v in top])
+    if args.batch:
+        rec["solves_per_s_unprofiled"] = args.batch / (warm_ms / 1e3)
     if not kernels:
         rec["note"] = "torch.profiler recorded no device events"
     if args.out:

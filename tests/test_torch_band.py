@@ -4,9 +4,9 @@ The port's chain sweep (``dompc_tpu_torch.solver.band_qr``) runs its plain
 PyTorch twin on CPU tensors and the CUDA kernel on CUDA tensors.  Here the
 twin is held against the JAX twin (``bbd.band_solve_qr_multi``, float64,
 1e-12 relative: both are LAPACK Householder QR sweeps, so they differ only
-by rounding) and against the Pallas lanes kernel in interpret mode
-(float32, with the bounds ``tests/test_pallas_band.py`` itself uses).  The
-kernel-vs-twin check needs the card: ``tests/test_torch_cuda.py``.
+by rounding) and against the Pallas lanes and tiled kernels in interpret
+mode (float32, with the bounds ``tests/test_pallas_band.py`` itself uses).
+The kernel-vs-twin checks need the card: ``tests/test_torch_cuda.py``.
 """
 import numpy as np
 import pytest
@@ -16,7 +16,8 @@ import torch
 
 from dompc_tpu.solver.bbd import band_solve_qr_multi as jax_band_multi
 from dompc_tpu.solver.bbd import bbd_solve as jax_bbd_solve
-from dompc_tpu.solver.pallas_band import band_solve_qr_pallas_lanes
+from dompc_tpu.solver.pallas_band import (band_solve_qr_pallas,
+                                          band_solve_qr_pallas_lanes)
 from dompc_tpu_torch.solver import band_qr
 from dompc_tpu_torch.solver.bbd import bbd_solve, bbd_matvec, band_matvec
 
@@ -144,3 +145,81 @@ def test_bbd_solve_refuses_spike_length_chains():
     with pytest.raises(NotImplementedError):
         bbd_solve(*_torch(arrays, torch.float64))
 
+
+@pytest.mark.parametrize("shape", [(3, 5, 4, 2), (2, 1, 3, 1), (5, 13, 7, 3),
+                                   (3, 4, 5, 2)])
+def test_tiled_plain_version_matches_pallas_tiled_f32(shape):
+    """``band_solve_tiled`` on the CPU (the plain version) against the TPU
+    kernel ``_band_sweep_kernel`` in interpret mode, 2 chains per tile (N=3
+    and N=5 pad the last tile), at the shapes and bound of
+    tests/test_pallas_band.py:32-50.  The chains are diagonally dominant
+    (condition O(1)): with that file's inputs (diagonal 4) the float32
+    solutions at (5, 13, 7, 3) sit 5e-5 to 9e-5 from the float64 one for
+    every solver, LAPACK's and the Pallas sweep alike, so two independent
+    float32 sweeps cannot agree to 5e-5 there."""
+    N, S, b, t = shape
+    rng = np.random.default_rng(sum(shape))
+    D = rng.standard_normal((N, S, b, b)) + 3 * b * np.eye(b)
+    U = 0.5 * rng.standard_normal((N, S - 1, b, b))
+    Lo = 0.5 * rng.standard_normal((N, S - 1, b, b))
+    rhs = rng.standard_normal((N, S, b, t))
+    arrays = [a.astype(np.float32) for a in (D, U, Lo, rhs)]
+    ref = band_solve_qr_pallas(*map(jnp.asarray, arrays), chains_per_tile=2,
+                               interpret=True)
+    got = band_qr.band_solve_tiled(*map(torch.as_tensor, arrays))
+    assert _rel(got.numpy(), ref) < 5e-5
+
+
+def test_band_solve_tiled_on_cpu_and_its_checks():
+    D, U, Lo, rhs = _torch(_case(2, 4, 3, 2, seed=5), torch.float32)
+    before = band_qr.band_solve_tiled.launches
+    got = band_qr.band_solve_tiled(D, U, Lo, rhs, chains_per_tile=2)
+    assert band_qr.band_solve_tiled.launches == before
+    assert torch.equal(got, band_qr.band_solve_qr_multi(D, U, Lo, rhs))
+    with pytest.raises(TypeError):      # float32 only, as pallas_band.py
+        band_qr.band_solve_tiled(D.double(), U.double(), Lo.double(),
+                                 rhs.double())
+    with pytest.raises(ValueError):
+        band_qr.band_solve_tiled(D, U[:, :2], Lo, rhs)
+
+
+def test_tiled_plan_layouts():
+    """The launch layouts the tiled kernel gets: at the flagship the
+    factors of G=3 chains fit in a block's 227 KB (G=4 would not); at
+    S=101 one chain's factors (265 KB) do not, so they go to a global
+    scratch."""
+    assert band_qr.tiled_plan(21, 13, 12) == (3, True, 3 * 4 * 15080)
+    G, f_smem, smem = band_qr.tiled_plan(101, 13, 12)
+    assert (G, f_smem) == (band_qr.TILED_MAX_G, False)
+    assert smem <= band_qr.SMEM_MAX
+    assert band_qr.tiled_plan(21, 13, 12, chains_per_tile=4)[1] is False
+    with pytest.raises(ValueError):
+        band_qr.tiled_plan(21, 13, 12, chains_per_tile=0)
+
+
+def test_bbd_solve_tiled_takes_long_chains_f32(monkeypatch):
+    """S >= 48 in float32: the tiled backend solves (JAX takes it before
+    the SPIKE partition, bbd.py:868-873), with the partition heuristic's
+    side effect of two refinement passes (bbd.py:842-846); the default
+    backend still refuses, SPIKE being unported, unless the float32
+    heuristic is switched off (DOMPC_TPU_SPIKE_F32_REFINE=0)."""
+    monkeypatch.delenv("DOMPC_TPU_SPIKE", raising=False)
+    monkeypatch.delenv("DOMPC_TPU_SPIKE_F32_REFINE", raising=False)
+    arrays = _bbd_case(2, 50, 3, 2, seed=7)
+    targs = _torch(arrays, torch.float32)
+    calls = []
+
+    def counting(*args):
+        calls.append(1)
+        return band_qr.band_solve_qr_multi(*args)
+
+    monkeypatch.setattr(band_qr, "band_solve_tiled", counting)
+    xc, xr = bbd_solve(*targs, backend="pallas_tiled")
+    assert len(calls) == 3                 # one sweep + 2 refinement passes
+    y_c, y_r = bbd_matvec(*targs[:5], xc, xr)
+    assert float((y_c - targs[5]).abs().max()) < 1e-4
+    with pytest.raises(NotImplementedError):
+        bbd_solve(*targs)
+    monkeypatch.setenv("DOMPC_TPU_SPIKE_F32_REFINE", "0")
+    xc0, _ = bbd_solve(*targs)
+    assert _rel(xc0.numpy(), xc.numpy()) < 1e-4

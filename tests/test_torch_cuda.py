@@ -18,7 +18,7 @@ from dompc_tpu_torch.solver.bbd import band_matvec
 
 def _needs_card():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the band-QR kernel is CUDA only")
+        pytest.skip("needs an NVIDIA GPU: the band kernels are CUDA only")
 
 
 def _case(N, S, b, t, seed, dtype):
@@ -62,3 +62,37 @@ def test_kernel_rejects_non_contiguous_input():
     with pytest.raises(ValueError):
         band_qr.band_solve(D, U, Lo, rhs.transpose(2, 3).contiguous()
                            .transpose(2, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,tile", [
+    ((9, 21, 13, 12), None), ((2, 1, 3, 1), None), ((4, 21, 13, 12), None),
+    ((3, 101, 13, 12), None), ((5, 21, 13, 12), 2)])
+def test_tiled_kernel_matches_twin_on_card(shape, tile):
+    """The tiled kernel (float32) against the plain version on the same
+    CUDA inputs; one launch is counted.  (4, 21, ...) leaves two of the
+    second block's three warps without a chain; S=101 keeps the factors
+    in global memory; tile 2 forces two chains per block.  Bounds as for
+    band_qr: 1e-4 for the error and the residual."""
+    _needs_card()
+    D, U, Lo, rhs = _case(*shape, seed=shape[1] + 1, dtype=torch.float32)
+    before = band_qr.band_solve_tiled.launches
+    x = band_qr.band_solve_tiled(D, U, Lo, rhs, chains_per_tile=tile)
+    torch.cuda.synchronize()
+    assert band_qr.band_solve_tiled.launches == before + 1
+    ref = band_qr.band_solve_qr_multi(D, U, Lo, rhs)
+    res = (band_matvec(D, U, Lo, x) - rhs).abs().max() / rhs.abs().max()
+    assert float(res) < 1e-4
+    assert float((x - ref).abs().max() / ref.abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_tiled_kernel_rejects_float64_and_non_contiguous():
+    _needs_card()
+    D, U, Lo, rhs = _case(2, 4, 3, 2, seed=1, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        band_qr.band_solve_tiled(D, U, Lo, rhs)
+    D, U, Lo, rhs = (a.float() for a in (D, U, Lo, rhs))
+    with pytest.raises(ValueError):
+        band_qr.band_solve_tiled(D, U, Lo, rhs.transpose(2, 3).contiguous()
+                                 .transpose(2, 3))

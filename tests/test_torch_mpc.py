@@ -148,7 +148,7 @@ def test_ipm_solver_device_and_dtype_rules(monkeypatch):
     """make_ipm_solver called without a device or dtype takes both from the
     environment, and wants CUDA unless the CPU is asked for."""
     def build():
-        return make_ipm_solver(lambda w, p: ((w - 0.25) ** 2).sum(), None,
+        return make_ipm_solver(lambda w, p: ((w - 0.25) ** 2).sum(-1), None,
                                None, np.zeros(2), np.ones(2), 0, 0)
 
     monkeypatch.delenv("DOMPC_TPU_PLATFORM", raising=False)
@@ -159,7 +159,7 @@ def test_ipm_solver_device_and_dtype_rules(monkeypatch):
     for x64, dtype in (("0", torch.float32), ("1", torch.float64)):
         monkeypatch.setenv("DOMPC_TPU_X64", x64)
         # a float32 start: the bounds' dtype decides the iterates' dtype
-        sol = build()(torch.full((2,), 0.5), torch.zeros(0))
+        sol = build()(torch.full((1, 2), 0.5), torch.zeros(1, 0))
         assert sol.w.dtype == dtype and sol.w.device.type == "cpu"
         assert bool(sol.success)
         assert float((sol.w - 0.25).abs().max()) < 1e-4
@@ -177,5 +177,5 @@ def test_unported_settings_raise(setting):
     else:
         st = IPMSettings(**{name: value})
     with pytest.raises(NotImplementedError):
-        make_ipm_solver(lambda w, p: w.sum(), None, None, np.zeros(2),
+        make_ipm_solver(lambda w, p: w.sum(-1), None, None, np.zeros(2),
                         np.ones(2), 0, 0, settings=st, **kw)
