@@ -6,23 +6,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: both band kernels from dompc_tpu_torch/csrc (band_qr.cu and
-   band_sweep_tiled.cu; one nvcc per source, started together, sm_90a),
-   with the build seconds and ptxas's register/spill report;
+   band_sweep_tiled.cu with band_core.cuh; one nvcc per source, started
+   together, sm_90a), with the build seconds and ptxas's registers,
+   shared memory and spills for every template instance; the flagship
+   instances (row bucket 13) must not spill;
 3. kernels against their plain version: band_qr in float32 and float64,
    band_sweep_tiled in float32, at the flagship shape (9 chains, S=21,
    b=13, t=12), a batch of 128 flagship problems (1152 chains), the DIP
-   chain length S=101 (the tiled kernel's factors then live in global
-   memory), and 1e22 diagonal entries in float32; relative error against
-   the plain version, operator residual, and the kernel's, the plain
-   version's and torch.linalg.solve's (dense yardstick) times;
+   chain length S=101, and 1e22 diagonal entries in float32; relative
+   error against the plain version, operator residual, the kernel's
+   device time (a loop of launches into buffers allocated beforehand,
+   queued while the card sleeps, so the host is ahead:
+   tools/band_probe.py:device_ms), the wrapper's time, ns per column step
+   (device time over S*b), and the plain version's and
+   torch.linalg.solve's (dense yardstick) times;
 4. make_step: the flagship robust CSTR NMPC (N=20, 9 scenarios) through
    Model -> MPC.setup() -> set_initial_guess() -> 5 make_step calls (a
    batch of one in the solver) on the card, in float32 (solver_tol 1e-4,
    60 iterations) and in float64 (in a subprocess with DOMPC_TPU_X64=1);
    the float64 pass also solves the first step with the port on the CPU
-   and holds the card's u0 to it.  The band sweeps of float32 step 0 are
-   recorded and band_qr is held against its plain version on those real
-   KKT chains;
+   and holds the card's u0 to it.  The band sweeps of step 0 are recorded
+   in both dtypes and band_qr is held against its plain version on those
+   real KKT chains;
 5. batched serving, float32: parallel.make_batch_solver on the flagship at
    B=128 (throughput_mode, tol 1e-3, 60 iterations; bench.py's states),
    one cold and one warm call, once with the default band backend and once
@@ -86,6 +91,12 @@ def cuda_ms(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+# the template instances the flagship launches (row bucket 13): ptxas must
+# report no spills for them
+FLAGSHIP_INSTANCES = ("band_qr<float,13>", "band_qr<double,13>",
+                      "band_sweep_tiled<13>")
 
 
 # --------------------------------------------------------------------------
@@ -156,6 +167,7 @@ def kernel_phase():
     import torch
     from dompc_tpu_torch.solver import band_qr
     from dompc_tpu_torch.solver.bbd import band_matvec
+    from dompc_tpu_torch.tools.band_probe import device_ms
 
     kernels = [("band_qr", band_qr.band_solve, BAND_CASES),
                ("band_sweep_tiled", band_qr.band_solve_tiled,
@@ -184,8 +196,13 @@ def kernel_phase():
                             / rhs.abs().max())
                 ok = bool(torch.isfinite(x).all()) and rel <= rel_max \
                     and res <= res_max
-                reps = 20 if N * S < 5000 else 5
-                ms = cuda_ms(lambda: kernel(D, U, Lo, rhs), reps)
+                # device time: launches queued into buffers allocated
+                # beforehand (not counted: the counters belong to the main
+                # paths), then the wrapper's time per call
+                launch, _ = band_qr.launcher(kname, D, U, Lo, rhs)
+                ms = device_ms(launch, 30)
+                del launch
+                wrapper_ms = cuda_ms(lambda: kernel(D, U, Lo, rhs), 30)
                 plain_ms = cuda_ms(
                     lambda: band_qr.band_solve_qr_multi(D, U, Lo, rhs), 3)
                 A = dense_chain(D, U, Lo)
@@ -194,18 +211,20 @@ def kernel_phase():
                 del A, B
                 nbytes, flops = band_work(N, S, b, t, x.element_size())
                 bound = max(nbytes / MEM_BW, flops / PEAK[dname]) * 1e3
+                plan = (band_qr.tiled_plan(b, t) if kname == "band_sweep_tiled"
+                        else band_qr.qr_plan(b, t, dt))
                 row = dict(kernel=kname, case=name, dtype=dname,
                            shape=list(shape), max_abs_err=err, rel_err=rel,
                            rel_bound=rel_max, residual=res,
-                           residual_bound=res_max, ms=ms, plain_ms=plain_ms,
+                           residual_bound=res_max, ms=ms,
+                           wrapper_ms=wrapper_ms,
+                           ns_per_column_step=ms * 1e6 / (S * b),
+                           plain_ms=plain_ms,
                            library_ms=lib_ms, bound_ms=bound,
                            bound_by="bytes" if nbytes / MEM_BW
                            >= flops / PEAK[dname] else "operations",
-                           bytes=nbytes, flops=flops, ok=ok)
-                if kname == "band_sweep_tiled":
-                    G, f_smem, smem = band_qr.tiled_plan(S, b, t)
-                    row.update(chains_per_block=G, smem_bytes=smem,
-                               factors="shared" if f_smem else "global")
+                           bytes=nbytes, flops=flops, ok=ok,
+                           plan=plan._asdict())
                 print(f"{kname} " + json.dumps(row), flush=True)
                 rows.append(row)
                 check(ok, f"{kname} {dname} {name}: rel {rel:.2e} (bound "
@@ -298,10 +317,15 @@ def recording(name, recorded, on=True):
 # The sweeps of a real step are barrier-scaled KKT chains: ill-conditioned,
 # with diagonals up to ~1e22 in float32, so neither solver is accurate to
 # float32 roundoff there.  The kernel is held to its twin's own accuracy on
-# the same float32 inputs: its residual and its error against the float64
-# twin within KKT_FACTOR times the twin's, plus KKT_FLOOR (~10 float32 eps)
-# for inputs where the twin is exact to roundoff.
-KKT_FACTOR, KKT_FLOOR = 10.0, 1e-6
+# the same inputs: its residual and its error against the float64 twin
+# within KKT_FACTOR times the twin's, plus KKT_FLOOR (~10 float32 eps; in
+# float64 the BAND_CASES bound) for inputs where the twin is exact to
+# roundoff.  In float64 the twin is the reference itself, so its error is
+# taken as the distance between it and a second float64 solver (a dense LU
+# solve of the chains): the kernel must agree with the plain version to 10
+# times what two float64 solvers agree to.
+KKT_FACTOR = 10.0
+KKT_FLOOR = {"float32": 1e-6, "float64": 1e-12}
 
 
 def check_recorded(recorded, kname, kernel, what):
@@ -313,6 +337,9 @@ def check_recorded(recorded, kname, kernel, what):
 
     worst = dict(res_kernel=0.0, res_twin=0.0, err_kernel=0.0, err_twin=0.0,
                  non_finite_inputs=0)
+    dname = str(recorded[0][0].dtype).replace("torch.", "") if recorded \
+        else "float32"
+    floor = KKT_FLOOR[dname]
     for i, args in enumerate(recorded):
         if not all(bool(torch.isfinite(a).all()) for a in args):
             # the last polish steps: a near-singular polish solve (1e10
@@ -323,9 +350,15 @@ def check_recorded(recorded, kname, kernel, what):
             continue
         x_k = kernel(*args).cpu().double()
         cpu = [a.cpu() for a in args]
-        x_t = band_qr.band_solve_qr_multi(*cpu).double()
         a64 = [a.double() for a in cpu]
         x_64 = band_qr.band_solve_qr_multi(*a64)
+        if dname == "float64":
+            x_t = torch.linalg.solve(
+                dense_chain(*a64[:3]),
+                a64[3].reshape(a64[3].shape[0], -1, a64[3].shape[-1])
+            ).reshape(x_64.shape)
+        else:
+            x_t = band_qr.band_solve_qr_multi(*cpu).double()
         r_max = float(a64[3].abs().max())
         x_max = float(x_64.abs().max())
 
@@ -333,21 +366,21 @@ def check_recorded(recorded, kname, kernel, what):
             return float((band_matvec(*a64[:3], x) - a64[3]).abs().max()) \
                 / r_max
 
-        row = dict(res_kernel=res(x_k), res_twin=res(x_t),
+        row = dict(res_kernel=res(x_k),
+                   res_twin=res(x_64 if dname == "float64" else x_t),
                    err_kernel=float((x_k - x_64).abs().max()) / x_max,
                    err_twin=float((x_t - x_64).abs().max()) / x_max)
         for key, val in row.items():
             worst[key] = max(worst[key], val)
         check(np.isfinite(list(row.values())).all()
-              and row["res_kernel"] <= KKT_FACTOR * row["res_twin"]
-              + KKT_FLOOR
-              and row["err_kernel"] <= KKT_FACTOR * row["err_twin"]
-              + KKT_FLOOR,
+              and row["res_kernel"] <= KKT_FACTOR * row["res_twin"] + floor
+              and row["err_kernel"] <= KKT_FACTOR * row["err_twin"] + floor,
               f"{kname} on recorded KKT sweep {i} of {what}: {row} (bound: "
-              f"{KKT_FACTOR:g} x plain + {KKT_FLOOR:g})")
+              f"{KKT_FACTOR:g} x plain + {floor:g})")
     worst["sweeps"] = len(recorded)
     worst["chains"] = int(recorded[0][0].shape[0]) if recorded else 0
     worst["recorded_from"] = what
+    worst["dtype"] = dname
     check(worst["sweeps"] > worst["non_finite_inputs"],
           f"no recorded band sweep of {what} had finite inputs")
     print(f"{kname}_kkt " + json.dumps(worst), flush=True)
@@ -395,11 +428,14 @@ def main_path_f64():
     """Child process (DOMPC_TPU_X64=1): 5 float64 steps on the card, then
     the first step again with the port on the CPU from the same state; then
     the batched-equals-per-instance phase on the card."""
+    from dompc_tpu_torch.solver import band_qr
     from dompc_tpu_torch.systems import cstr_robust_mpc, CSTR_X0
     from dompc_tpu_torch.interop import load_mpc_state
 
     check(os.environ.get("DOMPC_TPU_X64") == "1", "child needs X64")
-    run = drive_main_path(5, f32_settings=False)
+    run = drive_main_path(5, f32_settings=False, record=True)
+    run["kkt"] = check_recorded(run.pop("recorded"), "band_qr",
+                                band_qr.band_solve, "float64 make_step 0")
     os.environ["DOMPC_TPU_PLATFORM"] = "cpu"
     t0 = time.perf_counter()
     cpu = cstr_robust_mpc(n_horizon=20, n_robust=1)
@@ -415,7 +451,6 @@ def main_path_f64():
           f"card vs CPU rel {rel:.2e}", flush=True)
     check(rel <= 1e-6, f"card u0 differs from the CPU port's: rel {rel:.2e}")
     run.pop("first_state")
-    run.pop("recorded")
     run.update(cpu_u0=u_cpu.tolist(),
                cpu_iters=cpu.solver_stats["iter_count"], card_vs_cpu=rel)
     run["batched"] = batched_f64()
@@ -559,12 +594,20 @@ def main():
     card = card_line()
     print(f"card: {card}", flush=True)
 
-    # 2. build
+    # 2. build; ptxas's report of every template instance
+    ptxas = {}
     for name, (so, build_s, log) in band_qr.build().items():
         print(f"build: {name}: {so.name} in {build_s:.2f} s", flush=True)
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}", flush=True)
+        for rep in band_qr.ptxas_report(log):
+            print(f"  ptxas: {json.dumps(rep)}", flush=True)
+            ptxas[rep["instance"]] = rep
+    if ptxas:   # empty only when build/ already held both libraries
+        for inst in FLAGSHIP_INSTANCES:
+            rep = ptxas.get(inst)
+            check(rep is not None and rep["spill_stores"] == 0
+                  and rep["spill_loads"] == 0,
+                  f"ptxas: flagship instance {inst} spills or is missing: "
+                  f"{rep}")
 
     # 3. kernels against their plain version
     rows = kernel_phase()
@@ -622,9 +665,14 @@ def main():
             "max_abs_err": flag["max_abs_err"], "ms": flag["ms"],
             "plain_ms": flag["plain_ms"], "bound_ms": flag["bound_ms"],
             "bound_by": flag["bound_by"], "library_ms": flag["library_ms"],
+            "wrapper_ms": flag["wrapper_ms"],
+            "ns_per_column_step": flag["ns_per_column_step"],
             "ms_batch128": b128["ms"], "bound_ms_batch128": b128["bound_ms"],
             "launches_by_path": by_path[kname],
-            "kkt_sweeps": kkt if kname == "band_qr" else batched["kkt"]})
+            "ptxas_flagship": [ptxas.get(i) for i in FLAGSHIP_INSTANCES
+                               if i.startswith(kname + "<")],
+            "kkt_sweeps": [kkt, run64["kkt"]] if kname == "band_qr"
+            else [batched["kkt"]]})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

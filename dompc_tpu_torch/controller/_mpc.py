@@ -38,7 +38,8 @@ from ..tools._optxview import make_mpc_resolver
 from ..data import MPCData
 from ..solver.ipm import make_ipm_solver, ipm_settings_from
 from ..solver.bbd import (BBDAssembler, CondensedAssembler, bbd_solve,
-                          band_backend, demote_by_usage, ROOT)
+                          band_backend, demote_by_usage, scatter_sum_cols,
+                          ROOT)
 from .. import sym as casym
 from ._controllersettings import MPCSettings
 
@@ -618,9 +619,8 @@ class MPC(Optimizer, IteratedVariables):
         def grad_f(w, pvec):
             B = w.shape[0]
             G = vmap(d_obj)(*gather(w, pvec))
-            out = w.new_zeros((B, n_ext)).index_add(1, A_all_flat,
-                                                    G.reshape(B, -1))
-            return out[:, :n]
+            return scatter_sum_cols(A_all_flat, G.reshape(B, -1),
+                                    n_ext)[:, :n]
 
         init_row = torch.arange(n_x, device=dev)
 

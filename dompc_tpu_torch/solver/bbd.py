@@ -34,6 +34,17 @@ ROOT = -1       # chain id of root-assigned entities
 PARAM = -2      # chain id of parameter/dummy columns (dropped)
 
 
+def scatter_sum_cols(idx, src, n):
+    """(B, n) whose column ``idx[j]`` sums ``src[:, j]`` over every j with
+    that index.  ``index_put_`` with accumulate sorts the indices and sums
+    repeated ones in one fixed order; ``index_add`` on CUDA sums them with
+    atomics in an order that varies from run to run, and with it the
+    solver's rounding (two runs could take different iteration counts)."""
+    out = src.new_zeros((n, src.shape[0]))
+    out.index_put_((idx,), src.T, accumulate=True)
+    return out.T
+
+
 def _gather_plan(targets, srcs, garbage, t_size, k_low=4):
     """Invert a scatter-add into a two-tier gather plan.
 
@@ -524,8 +535,8 @@ class CondensedAssembler:
         M_bi M_ii^{-1} b_int); corr: (B, I, n_ent)."""
         B = corr.shape[0]
         csb = self.C * self.S * self.b
-        vec = corr.new_zeros((B, self.vec_size))
-        vec.index_add_(1, self.ent_pos, corr.reshape(B, -1))
+        vec = scatter_sum_cols(self.ent_pos, corr.reshape(B, -1),
+                               self.vec_size)
         return (rhs_c - vec[:, :csb].reshape(B, self.C, self.S, self.b),
                 rhs_r - vec[:, csb:csb + self.R])
 

@@ -140,6 +140,18 @@ def test_bbd_solve_refined_matches_jax_f64(R):
     assert float((y_c - targs[5]).abs().max()) < 1e-12
 
 
+def test_scatter_sum_cols_matches_index_add():
+    """The KKT assembly's scatter (repeated indices summed in a fixed
+    order) gives index_add's sums."""
+    from dompc_tpu_torch.solver.bbd import scatter_sum_cols
+    rng = np.random.default_rng(3)
+    idx = torch.as_tensor(rng.integers(0, 7, 40))
+    src = torch.as_tensor(rng.standard_normal((3, 40)))
+    ref = torch.zeros((3, 9), dtype=src.dtype).index_add(1, idx, src)
+    assert torch.allclose(scatter_sum_cols(idx, src, 9), ref, rtol=0,
+                          atol=1e-14)
+
+
 def test_bbd_solve_refuses_spike_length_chains():
     arrays = _bbd_case(1, 48, 2, 1, seed=1)
     with pytest.raises(NotImplementedError):
@@ -184,17 +196,112 @@ def test_band_solve_tiled_on_cpu_and_its_checks():
 
 
 def test_tiled_plan_layouts():
-    """The launch layouts the tiled kernel gets: at the flagship the
-    factors of G=3 chains fit in a block's 227 KB (G=4 would not); at
-    S=101 one chain's factors (265 KB) do not, so they go to a global
-    scratch."""
-    assert band_qr.tiled_plan(21, 13, 12) == (3, True, 3 * 4 * 15080)
-    G, f_smem, smem = band_qr.tiled_plan(101, 13, 12)
-    assert (G, f_smem) == (band_qr.TILED_MAX_G, False)
-    assert smem <= band_qr.SMEM_MAX
-    assert band_qr.tiled_plan(21, 13, 12, chains_per_tile=4)[1] is False
+    """The tiled kernel's launch layout follows registers, not shared
+    memory: at the flagship a lane owns 2 of the 51 panel columns (width
+    64), one warp solves a chain, and G = 4 warps a block; its
+    __launch_bounds__(128, 3) lets 3 such blocks share an SM, so every one
+    of a batch of 128 flagship problems (1152 chains, 9 an SM on 132 SMs)
+    is resident in one wave, and 3 blocks' shared memory (2 reflector
+    slots of 28 words, 2 staging buffers of 13 x 64 and an x ring of 3 x
+    12 right-hand sides at stride 20: 2440 words a warp) fits an SM's
+    228 KB.  S no longer matters: the factors live in device memory."""
+    plan = band_qr.tiled_plan(13, 12)
+    assert plan == band_qr.Plan(rows=13, width=64, chunk=12, chunks=1,
+                                buffers=2, G=4, smem=4 * 4 * 2440)
+    assert band_qr.TILED_MIN_BLOCKS * plan.G * 132 >= 9 * 128
+    assert band_qr.TILED_MIN_BLOCKS * plan.smem <= 228 * 1024
+    assert band_qr.tiled_plan(13, 12, chains_per_tile=2).G == 2
+    for bad in (0, band_qr.TILED_MAX_G + 1):
+        with pytest.raises(ValueError):
+            band_qr.tiled_plan(13, 12, chains_per_tile=bad)
+
+
+@pytest.mark.parametrize("b,t,rows,width,chunk,chunks", [
+    (13, 12, 13, 64, 12, 1),      # the flagship: 51 columns, 2 a lane
+    (13, 25, 13, 64, 25, 1),      # 3b + t = 64: the last unchunked width
+    (13, 26, 13, 64, 13, 2),      # 3b + t = 65: two chunks of 13
+    (5, 49, 8, 64, 49, 1), (5, 50, 8, 64, 25, 2),   # 3b + t = 64 | 65
+    (14, 12, 16, 64, 12, 1),      # b past the flagship bucket
+    (4, 3, 4, 32, 3, 1), (5, 3, 8, 64, 3, 1)])
+def test_tiled_plan_buckets_and_chunks(b, t, rows, width, chunk, chunks):
+    """Row bucket and right-hand-side chunks on both sides of their edges
+    (a lane of bucket r owns ceil((3r + 16) / 32) columns)."""
+    plan = band_qr.tiled_plan(b, t)
+    assert (plan.rows, plan.width, plan.chunk, plan.chunks) == \
+        (rows, width, chunk, chunks)
+    assert 3 * b + plan.chunk <= plan.width
+
+
+@pytest.mark.parametrize("dtype,smem", [(torch.float32, 4 * 2440),
+                                        (torch.float64, 8 * 2440)])
+def test_qr_plan_flagship(dtype, smem):
+    """band_qr at the flagship: one block of 64 threads (51 columns, one a
+    thread), the 13-row bucket, one chunk, two staging buffers; 2440 words
+    of shared memory (as the tiled kernel's warp)."""
+    assert band_qr.qr_plan(13, 12, dtype) == band_qr.Plan(
+        rows=13, width=64, chunk=12, chunks=1, buffers=2, G=1, smem=smem)
+
+
+@pytest.mark.parametrize("b,t,dtype,rows,width,chunks,buffers", [
+    (13, 217, torch.float32, 13, 256, 1, 2),   # 3b + t = 256 threads
+    (13, 218, torch.float32, 13, 160, 2, 2),   # 257: two chunks of 109
+    (4, 12, torch.float64, 4, 32, 1, 2), (5, 12, torch.float64, 8, 32, 1, 2),
+    (16, 12, torch.float32, 16, 64, 1, 2), (17, 12, torch.float32, 32, 64,
+                                              1, 2),
+    (97, 1, torch.float32, 97, 320, 1, 1),     # the widest float32 b
+    (69, 1, torch.float64, 97, 224, 1, 1),     # the widest float64 b
+    (18, 200, torch.float64, 32, 160, 2, 2)])  # split to fit shared memory
+def test_qr_plan_buckets_chunks_and_widest(b, t, dtype, rows, width,
+                                            chunks, buffers):
+    plan = band_qr.qr_plan(b, t, dtype)
+    assert (plan.rows, plan.width, plan.chunks, plan.buffers) == \
+        (rows, width, chunks, buffers)
+    assert 3 * b + plan.chunk <= plan.width <= band_qr.qr_max_threads(rows)
+    assert plan.smem <= band_qr.SMEM_MAX
+
+
+def test_qr_plan_accepts_what_the_one_block_panel_did():
+    """Every (b, t) whose (2b, 3b+t) panel fitted one block's shared memory
+    (the acceptance rule of the kernel this one replaced) still has a plan,
+    in both dtypes; b past the widest bucket is refused."""
+    for dtype, itemsize in ((torch.float32, 4), (torch.float64, 8)):
+        for b in range(1, 98):
+            for t in (1, 2, 3, 12, 50, 200, 1000):
+                fits = itemsize * (2 * b * (3 * b + t) + 2 * b + 3 * b * t
+                                   + 2) <= band_qr.SMEM_MAX
+                if fits:
+                    band_qr.qr_plan(b, t, dtype)
     with pytest.raises(ValueError):
-        band_qr.tiled_plan(21, 13, 12, chains_per_tile=0)
+        band_qr.qr_plan(98, 1, torch.float32)
+
+
+def test_ptxas_report_parses_instances():
+    qr = "_Z14band_qr_kernelIfLi13EEvPKT_S2_S2_S2_PS0_S3_iiiiii"
+    tl = "_Z23band_sweep_tiled_kernelILi97EEvPKfS1_S1_S1_PfS2_xiiiiii"
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{qr}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {qr}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 114 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{tl}' for 'sm_90a'",
+        "    9280 bytes stack frame, 2060 bytes spill stores, 3272 bytes "
+        "spill loads",
+        "ptxas info    : Used 168 registers"])
+    rep = band_qr.ptxas_report(log)
+    assert [r["instance"] for r in rep] == ["band_qr<float,13>",
+                                            "band_sweep_tiled<97>"]
+    assert (rep[0]["registers"], rep[0]["spill_stores"]) == (114, 0)
+    assert (rep[1]["registers"], rep[1]["spill_loads"]) == (168, 3272)
+
+
+def test_band_probe_patches_the_committed_core():
+    """tools/band_probe.py adds its clock reads at anchors of
+    csrc/band_core.cuh; they must still be there, once each."""
+    from dompc_tpu_torch.tools.band_probe import probe_source
+    core = (band_qr._CSRC / "band_core.cuh").read_text()
+    probed = probe_source(core)
+    assert probed.count("clock64()") == 3
+    assert probed.count("band_probe_clk[") == 3
 
 
 def test_bbd_solve_tiled_takes_long_chains_f32(monkeypatch):
