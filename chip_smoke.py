@@ -37,7 +37,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
    plain version on every band sweep recorded from the cold and the warm
    call made once more (neither timed nor counted);
 6. batched equals per-instance, float64 (in the subprocess): one batched
-   cold call of 4 instances at N=10 against four calls of one instance.
+   cold call of 4 instances at N=10 against four calls of one instance;
+7. RTI serving, float32, B=128 (bench.py's two RTI rows): from phase 5's
+   cold solution of the default backend, pure RTI(2) and RTI(2) with
+   bounded drift 1e-4; exactly 2 iterations per pure-RTI instance, every
+   drift instance certified, band_qr launched once per Newton step, F
+   within F_AGREE of phase 5's converged warm call; solves/s beside the
+   warm rate; band_qr held against its plain version on the sweeps of one
+   more RTI call;
+8. the closed loop, float64 (a second subprocess): (a) three
+   cstr_simulator steps on the card against the port on the CPU, (b) the
+   flagship against Simulator for 8 steps fully converged and in RTI(3)
+   warm-started through make_shift_fn, held to tests/test_rti.py:93-151's
+   bounds, with band_qr's launches per loop;
+9. the EKF, float64 (same subprocess): the triple-tank Simulator + EKF loop
+   of tests/test_ekf_lqr.py:18-51 (20 steps, seeded noise) and 3 steps of
+   a continuous CSTR EKF, on the card against the port on the CPU.
 
 Every kernel counter is set to 0 just before each path and read just
 after.  The last stdout line is {"ok": true, "device": {...}}; the line
@@ -537,6 +552,11 @@ def batched_phase():
                   f"batched {name} {kind}: {launches[own]} launches for "
                   f"{steps} Newton steps")
             calls.append(dict(rec, u0=u))
+            if name == "pallas" and kind == "warm":
+                # phase 7 starts where bench.py's RTI rows do: from the
+                # default backend's cold solution, against its warm call
+                out["rti_start"] = dict(mpc=mpc, x0s=x0s, cold=prev,
+                                        warm_F=u[:, 0], warm_rate=B / wall)
             prev = sol
         out["runs"][name] = calls
     worst = 0.0
@@ -560,6 +580,381 @@ def batched_phase():
                                 band_qr.band_solve_tiled,
                                 "a cold and a warm float32 batch of 128")
     return out
+
+
+RTI_REPS = 3     # timed calls per RTI mode (phase 7)
+
+
+def rti_phase(start):
+    """Phase 7: bench.py's two RTI rows (bench.py:151-205) at B=128 in
+    float32, from phase 5's cold solution of the default backend with the
+    warm inputs x0s*(1+1e-3) and mu0 = tol/10: pure RTI(2), and RTI(2) with
+    bounded drift 1e-4.  Each mode: one untimed call, then RTI_REPS timed
+    calls with the counters zeroed just before them."""
+    import torch
+    from dompc_tpu_torch.solver import band_qr
+    from dompc_tpu_torch.parallel import make_batch_solver
+
+    mpc, cold = start["mpc"], start["cold"]
+    x1 = start["x0s"] * (1.0 + 1e-3)
+    B, tol, n_rti = BATCH_B, 1e-3, 2
+    lb_u, ub_u = np.array([5.0, -8500.0]), np.array([100.0, 0.0])
+    kernels = {"band_qr": band_qr.band_solve,
+               "band_sweep_tiled": band_qr.band_solve_tiled}
+    out = dict(warm_solves_per_s=start["warm_rate"], modes={})
+    solvers = {}
+    for mode, extra in (("rti", {}), ("rti_drift", dict(rti_drift_tol=1e-4,
+                                                        rti_extra_max=6))):
+        solve = make_batch_solver(mpc, tol=tol, max_iter=60,
+                                  throughput_mode=True, rti_iters=n_rti,
+                                  rti_prox=1e-5, rti_step_max=10.0,
+                                  rti_mu_decay=1.0, **extra)
+        solvers[mode] = solve
+
+        def call():
+            return solve(x1, cold.w, cold.lam, tol / 10.0, cold.zl, cold.zu)
+        call()
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        steps0 = solve.ipm.newton_steps
+        t1 = time.perf_counter()
+        iters = []
+        for _ in range(RTI_REPS):
+            sol, u0 = call()
+            iters.append(sol.iterations)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) / RTI_REPS
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        steps = solve.ipm.newton_steps - steps0
+        it = torch.stack(iters).cpu().numpy()
+        ok = sol.success.cpu().numpy()
+        kkt = sol.kkt_err.double().cpu().numpy()
+        u = u0.double().cpu().numpy()
+        F_rel = float(np.max(np.abs(u[:, 0] - start["warm_F"])
+                             / (1.0 + np.abs(start["warm_F"]))))
+        rec = dict(mode=mode, B=B, wall_s=wall, solves_per_s=B / wall,
+                   iters_min=int(it.min()), iters_max=int(it.max()),
+                   iters_mean=float(it.mean()), success_rate=float(ok.mean()),
+                   kkt_err_max=float(kkt.max()), newton_steps=steps,
+                   launches=launches,
+                   rti_vs_warm_first_input_rel_err=F_rel)
+        print("rti " + json.dumps(rec), flush=True)
+        check(np.isfinite(u).all() and (u >= lb_u - 1e-6 * np.abs(lb_u))
+              .all() and (u <= ub_u + 1e-6).all(),
+              f"{mode}: u0 not finite or out of bounds")
+        check(launches["band_qr"] == steps and launches["band_sweep_tiled"]
+              == 0, f"{mode}: launches {launches} for {steps} Newton steps")
+        check(F_rel <= F_AGREE, f"{mode}: F differs from the converged warm "
+                                f"call by {F_rel:.3e} (bound {F_AGREE})")
+        if mode == "rti":
+            check(it.min() == it.max() == n_rti and steps == n_rti * RTI_REPS,
+                  f"rti: iterations {it.min()}..{it.max()}, {steps} Newton "
+                  f"steps in {RTI_REPS} calls (want exactly {n_rti} each)")
+        else:
+            extra_max = extra["rti_extra_max"]
+            check(ok.all() and kkt.max() <= max(1e-4, tol),
+                  f"rti_drift: {int((~ok).sum())} of {B} instances not "
+                  f"certified, max kkt_err {kkt.max():.2e}")
+            check(it.max() <= n_rti + extra_max,
+                  f"rti_drift: {it.max()} iterations > {n_rti} + {extra_max}")
+        out["modes"][mode] = rec
+    print(f"  solves/s: warm converged {start['warm_rate']:.1f}, RTI "
+          f"{out['modes']['rti']['solves_per_s']:.1f}, bounded drift "
+          f"{out['modes']['rti_drift']['solves_per_s']:.1f}", flush=True)
+    # band_qr on every band sweep of one more pure-RTI call (neither timed
+    # nor counted)
+    recorded = []
+    with recording("band_solve", recorded):
+        solvers["rti"](x1, cold.w, cold.lam, tol / 10.0, cold.zl, cold.zu)
+    out["kkt"] = check_recorded(recorded, "band_qr", band_qr.band_solve,
+                                "a float32 RTI(2) call at B=128")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phases 8 and 9: the closed loop, float64 (child process)
+# --------------------------------------------------------------------------
+
+CL_STEPS = 8           # plant steps per closed loop (tests/test_rti.py:130)
+U_PLANT = np.array([[18.0, -4500.0], [25.0, -3000.0], [12.0, -6000.0]])
+
+
+def closed_loop_pair(n_steps=CL_STEPS):
+    """The flagship in closed loop against ``Simulator``, fully converged
+    (``make_batch_solver(tol=1e-6, max_iter=80)``) and in RTI(3) warm-started
+    through ``make_shift_fn`` (tests/test_rti.py:93-151), on the device of
+    the environment.  Returns per-loop records and the comparison."""
+    import torch
+    from dompc_tpu_torch.solver import band_qr
+    from dompc_tpu_torch.systems import (cstr_robust_mpc, cstr_model,
+                                         cstr_simulator, CSTR_X0)
+    from dompc_tpu_torch.parallel import make_batch_solver, make_shift_fn
+
+    mpc = cstr_robust_mpc(n_horizon=20, n_robust=1)
+    shift = make_shift_fn(mpc)
+    full = make_batch_solver(mpc, tol=1e-6, max_iter=80)
+    rti = make_batch_solver(mpc, tol=1e-6, max_iter=80, throughput_mode=True,
+                            rti_iters=3, rti_prox=1e-2, rti_step_max=2.0,
+                            rti_mu_decay=0.1)
+    mpc.x0 = CSTR_X0
+    mpc.set_initial_guess()
+    w0 = mpc.opt_x_num[None, :]
+    sync = torch.cuda.synchronize if mpc._device.type == "cuda" \
+        else (lambda: None)
+    out = {}
+    for name, solver, use_shift in (("full", full, False),
+                                    ("rti", rti, True)):
+        sim = cstr_simulator(cstr_model())
+        sim.x0 = CSTR_X0.copy()
+        x = CSTR_X0.copy()
+        band_qr.band_solve.launches = 0
+        band_qr.band_solve_tiled.launches = 0
+        steps0 = solver.ipm.newton_steps
+        sync()
+        t0 = time.perf_counter()
+        sol, u = solver(x[None], w0)
+        sync()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        Fs, xs, cost = [float(u[0, 0])], [x.copy()], 0.0
+        iters, ok, step_ms, sim_ms, sim_steps = [], [], [], [], []
+        for _ in range(n_steps):
+            t0 = time.perf_counter()
+            y = sim.make_step(u.double().cpu().numpy().reshape(-1, 1))
+            sim_ms.append((time.perf_counter() - t0) * 1e3)
+            sim_steps.append(sim.adaptive_steps)
+            x = np.asarray(y).reshape(-1)
+            xs.append(x)
+            cost += (x[1] - 0.6) ** 2
+            t0 = time.perf_counter()
+            if use_shift:
+                wS, lS, zlS, zuS = shift(sol)
+                sol, u = solver(x[None], wS, lS, 1e-4, zlS, zuS)
+            else:
+                sol, u = solver(x[None], sol.w, sol.lam, 1e-4, sol.zl,
+                                sol.zu)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            Fs.append(float(u[0, 0]))
+            iters.append(int(sol.iterations[0]))
+            ok.append(bool(sol.success[0]))
+        out[name] = dict(
+            F=Fs, x=[v.tolist() for v in xs], cost=cost, cold_ms=cold_ms,
+            step_ms=step_ms, iters=iters, success=ok, sim_ms=sim_ms,
+            sim_adaptive_steps=sim_steps,
+            newton_steps=solver.ipm.newton_steps - steps0,
+            launches={"band_qr": band_qr.band_solve.launches,
+                      "band_sweep_tiled": band_qr.band_solve_tiled.launches})
+    F_full, F_rti = np.array(out["full"]["F"]), np.array(out["rti"]["F"])
+    x_full, x_rti = np.array(out["full"]["x"]), np.array(out["rti"]["x"])
+    out["F_rel_max"] = float(np.max(np.abs(F_rti - F_full)
+                                    / (1 + np.abs(F_full))))
+    out["x_rel_max"] = float(np.max(np.abs(x_rti - x_full)
+                                    / (1 + np.abs(x_full))))
+    out["cost_ratio"] = out["rti"]["cost"] / out["full"]["cost"]
+    return out
+
+
+def closed_loop_faults(res):
+    """The bounds of tests/test_rti.py:147-151 plus the step semantics:
+    every full step certifies, every warm RTI step takes exactly 3
+    iterations, and the RTI loop sweeps twice per Newton step (float64,
+    one refinement pass)."""
+    faults = []
+    if res["F_rel_max"] > 6e-2:
+        faults.append(f"F rel err {res['F_rel_max']:.3e} > 6e-2")
+    if res["x_rel_max"] > 2e-2:
+        faults.append(f"state rel err {res['x_rel_max']:.3e} > 2e-2")
+    if not 0.7 <= res["cost_ratio"] <= 1.3:
+        faults.append(f"cost ratio {res['cost_ratio']:.3f} outside [0.7, 1.3]")
+    if not all(res["full"]["success"]):
+        faults.append(f"full loop steps not certified: {res['full']}")
+    if res["rti"]["iters"] != [3] * len(res["rti"]["iters"]):
+        faults.append(f"RTI iterations {res['rti']['iters']} (want 3)")
+    return faults
+
+
+def plant_run(n=len(U_PLANT)):
+    """``cstr_simulator`` from CSTR_X0 under U_PLANT on the device of the
+    environment: the states and each step's ms and adaptive steps."""
+    from dompc_tpu_torch.systems import cstr_model, cstr_simulator, CSTR_X0
+    sim = cstr_simulator(cstr_model())
+    sim.x0 = CSTR_X0
+    ms, steps = [], []
+    for k in range(n):
+        t0 = time.perf_counter()
+        sim.make_step(U_PLANT[k].reshape(-1, 1))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        steps.append(sim.adaptive_steps)
+    return dict(x=np.vstack([sim.data._x, sim.x0.data[None]]), ms=ms,
+                adaptive_steps=steps, device=str(sim._device))
+
+
+def tank_tvp_fun(tmpl):
+    def tvp_fun(t_now):
+        tmpl["tvp1"] = 0.5 if t_now < 50 else 1.0
+        return tmpl
+    return tvp_fun
+
+
+def ekf_run(n_steps=20, seed=42):
+    """The triple-tank Simulator + EKF loop of tests/test_ekf_lqr.py:18-51
+    (seeded measurement noise), then 3 EKF steps on the continuous CSTR
+    (covariance through the adaptive integrator), on the device of the
+    environment."""
+    import dompc_tpu_torch as dm
+    from dompc_tpu_torch.systems import triple_tank_model, cstr_model
+
+    model = triple_tank_model()
+    sim = dm.Simulator(model)
+    sim.set_param(t_step=1)
+    p_t = sim.get_p_template()
+    p_t["p1"] = 2
+    sim.set_p_fun(lambda t: p_t)
+    sim.set_tvp_fun(tank_tvp_fun(sim.get_tvp_template()))
+    sim.setup()
+    ekf = dm.estimator.EKF(model)
+    ekf.settings.t_step = 1
+    p_te = ekf.get_p_template()
+    p_te["p1"] = 2
+    ekf.set_p_fun(lambda t: p_te)
+    ekf.set_tvp_fun(tank_tvp_fun(ekf.get_tvp_template()))
+    ekf.setup()
+    Q = np.diag(1e-3 * np.ones(model.n_x))
+    R = np.diag(1e-2 * np.ones(model.n_y))
+    sim.x0 = np.array([2, 2.8, 2.7])
+    ekf.x0 = np.array([1.2, 1.4, 1.8])
+    sim.set_initial_guess()
+    ekf.set_initial_guess()
+    rng = np.random.default_rng(seed)
+    u0 = np.array([[0.0001], [0.0001]])
+    ekf_ms = []
+    for _ in range(n_steps):
+        y = sim.make_step(u0, v0=0.001 * rng.standard_normal((model.n_v, 1)))
+        t0 = time.perf_counter()
+        ekf.make_step(y_next=y, u_next=u0, Q_k=Q, R_k=R)
+        ekf_ms.append((time.perf_counter() - t0) * 1e3)
+    # continuous: the CSTR
+    cekf = dm.estimator.EKF(cstr_model())
+    cekf.settings.t_step = 0.005
+    p_c = cekf.get_p_template()
+    p_c["alpha"] = 1.0
+    p_c["beta"] = 1.0
+    cekf.set_p_fun(lambda t: p_c)
+    cekf.setup()
+    cekf.x0 = np.array([0.8, 0.5, 134.14, 130.0])
+    cekf.P0 = np.diag([0.01, 0.01, 1.0, 1.0])
+    cekf.set_initial_guess()
+    Qc = np.diag([1e-4, 1e-4, 1e-2, 1e-2])
+    Rc = np.diag([1e-3, 1e-3, 1e-1, 1e-1])
+    c_ms, c_steps = [], []
+    for k in range(3):
+        y = np.array([0.85, 0.52, 134.0, 129.8]) * (1.0 + 1e-3 * k)
+        t0 = time.perf_counter()
+        cekf.make_step(y_next=y, u_next=U_PLANT[0].reshape(-1, 1), Q_k=Qc,
+                       R_k=Rc)
+        c_ms.append((time.perf_counter() - t0) * 1e3)
+        c_steps.append(cekf.adaptive_steps)
+    return dict(tank_x=ekf.data._x, tank_P=ekf.P0, plant_x=sim.data._x,
+                tank_ekf_ms=ekf_ms, cstr_x=cekf.data._x, cstr_P=cekf.P0,
+                cstr_ekf_ms=c_ms, cstr_adaptive_steps=c_steps,
+                device=str(ekf._device))
+
+
+def _rel_max(a, b):
+    a, b = np.asarray(a, dtype=float), np.asarray(b, dtype=float)
+    return float(np.max(np.abs(a - b) / np.maximum(1.0, np.abs(b))))
+
+
+def closed_loop_f64():
+    """Child process (DOMPC_TPU_X64=1): phases 8 and 9.  The CPU runs of
+    the port are the yardstick of 8a and 9, asked for explicitly."""
+    from dompc_tpu_torch.solver import band_qr
+
+    check(os.environ.get("DOMPC_TPU_X64") == "1", "child needs X64")
+
+    def on_cpu(fn):
+        os.environ["DOMPC_TPU_PLATFORM"] = "cpu"
+        try:
+            return fn()
+        finally:
+            os.environ.pop("DOMPC_TPU_PLATFORM")
+
+    rec = {}
+    # 8a: the plant
+    gpu, cpu = plant_run(), on_cpu(plant_run)
+    check(gpu["device"].startswith("cuda") and cpu["device"] == "cpu",
+          f"plant devices {gpu['device']} / {cpu['device']}")
+    rel = _rel_max(gpu["x"], cpu["x"])
+    rec["plant"] = dict(card_vs_cpu=rel, ms=gpu["ms"],
+                        adaptive_steps=gpu["adaptive_steps"],
+                        cpu_ms=cpu["ms"])
+    print("plant " + json.dumps(rec["plant"]), flush=True)
+    check(rel <= 1e-9, f"plant on the card vs the CPU: rel {rel:.2e} "
+                       "(bound 1e-9)")
+    # 8b: full against RTI
+    t0 = time.perf_counter()
+    res = closed_loop_pair()
+    res["wall_s"] = time.perf_counter() - t0
+    for name in ("full", "rti"):
+        loop = res[name]
+        print(f"closed_loop_{name} " + json.dumps(
+            {k: loop[k] for k in ("cold_ms", "step_ms", "iters", "success",
+                                  "sim_ms", "sim_adaptive_steps",
+                                  "newton_steps", "launches")}), flush=True)
+    print(f"  F rel {res['F_rel_max']:.3e} (bound 6e-2), x rel "
+          f"{res['x_rel_max']:.3e} (bound 2e-2), cost ratio "
+          f"{res['cost_ratio']:.4f} (bound [0.7, 1.3])", flush=True)
+    faults = closed_loop_faults(res)
+    check(not faults, "closed loop: " + "; ".join(faults))
+    for name in ("full", "rti"):
+        n = res[name]["launches"]
+        check(n["band_qr"] > 0 and n["band_sweep_tiled"] == 0,
+              f"closed loop {name}: launches {n}")
+    n_rti = res["rti"]
+    check(n_rti["launches"]["band_qr"] == 2 * n_rti["newton_steps"],
+          f"closed loop rti: {n_rti['launches']} launches for "
+          f"{n_rti['newton_steps']} Newton steps (want 2 each)")
+    rec["closed_loop"] = {k: res[k] for k in ("F_rel_max", "x_rel_max",
+                                              "cost_ratio", "wall_s")}
+    rec["closed_loop"].update({
+        f"{name}_{key}": res[name][key] for name in ("full", "rti")
+        for key in ("cold_ms", "step_ms", "iters", "sim_ms",
+                    "sim_adaptive_steps", "newton_steps", "launches")})
+    # 9: EKF
+    gpu, cpu = ekf_run(), on_cpu(ekf_run)
+    rel = max(_rel_max(gpu[k], cpu[k]) for k in ("tank_x", "tank_P",
+                                                 "plant_x", "cstr_x",
+                                                 "cstr_P"))
+    rec["ekf"] = dict(card_vs_cpu=rel, tank_ekf_ms=gpu["tank_ekf_ms"],
+                      cstr_ekf_ms=gpu["cstr_ekf_ms"],
+                      cstr_adaptive_steps=gpu["cstr_adaptive_steps"],
+                      cpu_tank_ekf_ms=cpu["tank_ekf_ms"],
+                      cpu_cstr_ekf_ms=cpu["cstr_ekf_ms"])
+    print("ekf " + json.dumps(rec["ekf"]), flush=True)
+    check(gpu["device"].startswith("cuda"), f"EKF on {gpu['device']}")
+    check(rel <= 1e-9, f"EKF on the card vs the CPU: rel {rel:.2e} "
+                       "(bound 1e-9)")
+    check(band_qr.band_solve_tiled.launches == 0, "tiled kernel launched")
+    print("CL_RESULT " + json.dumps(rec), flush=True)
+
+
+def run_child(flag, timeout):
+    """Run this script with ``flag`` in a float64 child; echo its lines,
+    fail with its errors, return its result line's JSON."""
+    env = dict(os.environ, DOMPC_TPU_X64="1")
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), flag],
+                           env=env, cwd=ROOT, capture_output=True, text=True,
+                           timeout=timeout)
+    tag = {"--main-path-f64": "F64_RESULT ", "--closed-loop-f64":
+           "CL_RESULT "}[flag]
+    out = child.stdout
+    sys.stdout.write("".join(l + "\n" for l in out.splitlines()
+                             if not l.startswith(tag)))
+    check(child.returncode == 0, f"{flag} child failed:\n"
+                                 f"{child.stderr[-4000:]}")
+    return json.loads(next(l for l in out.splitlines()
+                           if l.startswith(tag))[len(tag):])
 
 
 def summarize(tag, run):
@@ -621,20 +1016,18 @@ def main():
     # 5. batched serving, float32
     print("batched serving float32, B=128:", flush=True)
     batched = batched_phase()
-    env = dict(os.environ, DOMPC_TPU_X64="1")
-    child = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--main-path-f64"], env=env, cwd=ROOT,
-                           capture_output=True, text=True, timeout=900)
-    out, err = child.stdout, child.stderr
+    # 7. RTI serving, float32, from phase 5's default-backend solution
+    print("RTI serving float32, B=128:", flush=True)
+    rti = rti_phase(batched.pop("rti_start"))
     print("make_step float64 and batched float64 (subprocess):", flush=True)
-    sys.stdout.write("".join(l + "\n" for l in out.splitlines()
-                             if not l.startswith("F64_RESULT ")))
-    check(child.returncode == 0, f"float64 child failed:\n{err[-4000:]}")
-    run64 = json.loads(next(l for l in out.splitlines()
-                            if l.startswith("F64_RESULT "))[11:])
+    run64 = run_child("--main-path-f64", 900)
     main32, main64 = summarize("float32", run32), summarize("float64", run64)
     print("main_path " + json.dumps(main32), flush=True)
     print("main_path " + json.dumps(main64), flush=True)
+    # 8 and 9. the closed loop and the EKF, float64
+    print("closed loop and EKF float64 (subprocess):", flush=True)
+    loop64 = run_child("--closed-loop-f64", 600)
+    print("closed_loop " + json.dumps(loop64), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def row(kname, case):
@@ -642,6 +1035,7 @@ def main():
                     and r["case"] == case and r["dtype"] == "float32")
 
     runs = batched["runs"]
+    cl = loop64["closed_loop"]
     by_path = {
         "band_qr": {"make_step_f32": run32["launches"],
                     "make_step_f64": run64["launches"],
@@ -651,6 +1045,12 @@ def main():
         "band_sweep_tiled": {"batched_f32_B128_pallas_tiled": sum(
             c["launches"]["band_sweep_tiled"]
             for c in runs["pallas_tiled"])}}
+    for kname, paths in by_path.items():
+        paths.update({
+            "rti_f32_B128": rti["modes"]["rti"]["launches"][kname],
+            "rti_drift_f32_B128": rti["modes"]["rti_drift"]["launches"][kname],
+            "closed_loop_f64_full": cl["full_launches"][kname],
+            "closed_loop_f64_rti": cl["rti_launches"][kname]})
     kernels = []
     for kname, src, line, main_path in (
             ("band_qr", "dompc_tpu_torch/csrc/band_qr.cu",
@@ -671,8 +1071,8 @@ def main():
             "launches_by_path": by_path[kname],
             "ptxas_flagship": [ptxas.get(i) for i in FLAGSHIP_INSTANCES
                                if i.startswith(kname + "<")],
-            "kkt_sweeps": [kkt, run64["kkt"]] if kname == "band_qr"
-            else [batched["kkt"]]})
+            "kkt_sweeps": [kkt, run64["kkt"], rti["kkt"]]
+            if kname == "band_qr" else [batched["kkt"]]})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -684,5 +1084,8 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--main-path-f64"]:
         sys.path.insert(0, ROOT)
         main_path_f64()
+    elif sys.argv[1:] == ["--closed-loop-f64"]:
+        sys.path.insert(0, ROOT)
+        closed_loop_f64()
     else:
         main()

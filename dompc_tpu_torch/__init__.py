@@ -4,7 +4,8 @@ Same module names and public names as the JAX package (``dm.model.Model``,
 ``dm.controller.MPC``, ``mpc.settings``, ``mpc.bounds[...]``,
 ``mpc.scaling[...]``); the numerics run as eager PyTorch with
 ``torch.func`` transforms, and the KKT chain sweep runs in a hand-written
-CUDA kernel (``solver/band_qr.py``, ``csrc/band_qr.cu``).
+CUDA kernel (``solver/band_qr.py``, ``csrc/band_qr.cu``).  The closed loop
+has ``dm.Simulator`` and ``dm.estimator.EKF``.
 
 Environment (read when an MPC is set up, never at import):
 
@@ -28,6 +29,9 @@ from . import data  # noqa: E402
 from . import optimizer  # noqa: E402
 from . import solver  # noqa: E402
 from . import controller  # noqa: E402
+from . import ops  # noqa: E402
+from .simulator import Simulator  # noqa: E402
+from . import estimator  # noqa: E402
 from . import systems  # noqa: E402
 from . import parallel  # noqa: E402
 

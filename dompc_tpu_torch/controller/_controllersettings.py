@@ -55,15 +55,32 @@ class MPCSettings(ControllerSettings):
                                 # no convergence loop (the acados-style
                                 # fixed-latency receding-horizon path; the
                                 # cold first solve still runs the full
-                                # globalized loop).  Not ported yet: a
-                                # value above 0 raises NotImplementedError,
-                                # and the RTI damping/decay knobs come with
-                                # it.
+                                # globalized loop).  See solver/ipm.py
+                                # rti_* settings for damping/decay knobs.
     solver_globalization: str = "filter"  # 'filter': Wächter-Biegler
                                 # (theta, phi) filter line search (the
                                 # IPOPT globalization; converges the DIP
                                 # swing-up).  'merit': legacy l1-merit
-                                # acceptance.
+                                # acceptance (not ported yet).
+    solver_rti_prox: float = 1e-3      # RTI Levenberg damping
+    solver_rti_step_max: float = 10.0  # RTI trust-region step cap
+    solver_rti_mu_decay: float = 0.1   # RTI per-iteration barrier decay
+    solver_rti_drift_tol: float | None = None  # bounded-drift RTI: extra
+                                # corrective Newton iterations whenever
+                                # the true KKT error exceeds this after
+                                # the fixed rti_iters (acados-style
+                                # drift safeguard; success certifies
+                                # against it)
+    solver_rti_extra_max: int = 6  # cap on bounded-drift corrective
+                                # iterations (per warm step)
+    solver_rti_filter: bool = False  # filter-RTI hybrid: warm make_step
+                                # calls run the FULL filter line-search
+                                # body capped at solver_rti_iters
+                                # iterations (plus drift corrections when
+                                # solver_rti_drift_tol is set) instead of
+                                # raw damped Newton steps.  The deployment
+                                # mode for strongly nonlinear plants (DIP
+                                # swing-up) where pure RTI diverges.
     kkt_solver: str = "auto"   # 'auto' | 'dense' | 'tridiag'
     condense_z: str = "auto"   # 'auto': AD-probe whether nl_cons depend
                                # on algebraic vars (z-independent ->

@@ -1,8 +1,9 @@
-"""Carry a controller's numeric state across from the JAX package.
+"""Carry numeric state across from the JAX package.
 
-The parity tests build the JAX MPC and the port's MPC from the same
-construction code (model constants and uncertainty values come along that way), then
-start both solvers from the same numeric point with :func:`load_mpc_state`.
+The parity tests build the JAX objects and the port's from the same
+construction code (model constants and uncertainty values come along that
+way), then start both from the same numeric point: an MPC's solver with
+:func:`load_mpc_state`, a Simulator or an EKF with :func:`load_loop_state`.
 Only numpy arrays cross: this module imports nothing of JAX.
 """
 import numpy as np
@@ -60,3 +61,31 @@ def load_mpc_state(mpc, arrays):
     mpc.flags["initial_run"] = bool(arrays["initial_run"])
     mpc.flags["set_initial_guess"] = True
     return mpc
+
+
+LOOP_KEYS = ("x0", "z0", "t0", "P0")
+
+
+def loop_state_arrays(obj):
+    """The numeric state of a ``Simulator`` or an ``EKF`` of either package
+    (x0, z0, t0 and, for an EKF, P0) as numpy arrays under
+    :data:`LOOP_KEYS`."""
+    out = {}
+    for key in LOOP_KEYS:
+        val = getattr(obj, key, None)
+        if val is not None:
+            out[key] = np.array(getattr(val, "data", val), dtype=float)
+    return out
+
+
+def load_loop_state(obj, arrays):
+    """Copy numeric state (as produced by :func:`loop_state_arrays`, or any
+    subset of x0, z0, t0, P0 as numpy arrays) into a port ``Simulator`` or
+    ``EKF``, so that it continues where the other package's object is.  A
+    Simulator's next z guess follows z0."""
+    for key in LOOP_KEYS:
+        if key in arrays:
+            setattr(obj, key, np.array(arrays[key], dtype=float))
+    if "z0" in arrays and hasattr(obj, "_z_guess"):
+        obj._z_guess = obj.z0.data.copy()
+    return obj

@@ -24,7 +24,8 @@ def const_cache(arr):
     """``ref -> arr`` as a tensor of ``ref``'s dtype and device, made once
     per (dtype, device): closures evaluated inside ``torch.func``
     transforms call this on every evaluation, and a host-to-device copy
-    each time would dominate on the card."""
+    each time would dominate on the card.  The copy is made outside any
+    transform (``sym.plain_tensor``), so a first call inside one is safe."""
     arr = np.asarray(arr, dtype=float)
     cache = {}
 
@@ -32,8 +33,9 @@ def const_cache(arr):
         key = (ref.dtype, ref.device)
         out = cache.get(key)
         if out is None:
-            out = cache[key] = torch.as_tensor(arr, dtype=ref.dtype,
-                                               device=ref.device)
+            out = cache[key] = casym.plain_tensor(
+                lambda: torch.as_tensor(arr, dtype=ref.dtype,
+                                        device=ref.device))
         return out
     return get
 

@@ -64,9 +64,12 @@ def make_batch_solver(mpc, tol=1e-6, max_iter=60, use_structured=True,
     in the float64 band solve (three otherwise) -- the JAX package's
     settings for large-batch moderate-tolerance solves.  ``chunk`` solves
     a batch as sequential sub-batches of ``chunk`` instances (B must be a
-    multiple of it).  ``rti_iters`` other than 0 raises
-    ``NotImplementedError`` (the RTI mode is not ported yet); ``warm`` is
-    accepted for the JAX signature and unused there too.
+    multiple of it).  ``rti_iters > 0`` selects real-time iteration for
+    warm calls (``lam0s`` given): exactly that many damped Newton steps,
+    plus drift corrections with ``rti_drift_tol`` (the ``rti_*`` settings
+    pass through ``ipm_overrides``); a cold call runs the genuine cold
+    program, the full globalized loop.  ``warm`` is accepted for the JAX
+    signature and unused there too.
     ``solve_batch.ipm`` is the underlying solver (its ``newton_steps``
     counts the batch's Newton steps).
     """

@@ -36,9 +36,8 @@ from .._config import resolve_device, resolve_dtype
 class IPMSettings:
     """The JAX package's ``IPMSettings`` fields that the ported path reads,
     with the same defaults (see there for the reasoning behind each), plus
-    those of ``_UNPORTED``.  The RTI knobs, ``lam_init_max``,
-    ``refit_delta`` and ``debug`` come with the code paths that read
-    them."""
+    those of ``_UNPORTED``.  ``lam_init_max``, ``refit_delta`` and
+    ``debug`` come with the code paths that read them."""
     tol: float = 1e-8
     tol_loop: float | None = None
     max_iter: int = 200
@@ -73,15 +72,20 @@ class IPMSettings:
     reg_retries: int = 5
     use_soc: bool = True
     do_polish: bool = True
-    rti_iters: int = 0
+    rti_iters: int = 0          # >0: real-time iteration on warm calls
+    rti_prox: float = 1e-3      # fixed Levenberg damping of RTI steps
+    rti_step_max: float = 10.0  # trust-region cap: |dw|_inf * alpha <= this
     dual_refit: bool = False
+    rti_drift_tol: float | None = None  # bounded-drift RTI band
+    rti_extra_max: int = 6      # cap on drift-correction iterations
+    rti_filter: bool = False    # filter-RTI hybrid (capped globalized loop)
+    rti_mu_decay: float = 0.1   # per-RTI-iteration barrier decrease
     n_refine_kkt: int = 0
 
 
 # settings whose non-default values select code paths not ported yet
-_UNPORTED = {"rti_iters": 0, "globalization": "filter",
-             "cold_dual_init": False, "dual_refit": False,
-             "n_refine_kkt": 0, "tol_loop": None}
+_UNPORTED = {"globalization": "filter", "cold_dual_init": False,
+             "dual_refit": False, "n_refine_kkt": 0}
 
 
 def ipm_settings_from(st, **overrides) -> "IPMSettings":
@@ -98,6 +102,12 @@ def ipm_settings_from(st, **overrides) -> "IPMSettings":
         ls_max=getattr(st, "solver_ls_max", 25),
         mu_min_factor=getattr(st, "solver_mu_min_factor", 0.1),
         rti_iters=getattr(st, "solver_rti_iters", 0),
+        rti_prox=getattr(st, "solver_rti_prox", 1e-3),
+        rti_step_max=getattr(st, "solver_rti_step_max", 10.0),
+        rti_mu_decay=getattr(st, "solver_rti_mu_decay", 0.1),
+        rti_drift_tol=getattr(st, "solver_rti_drift_tol", None),
+        rti_filter=getattr(st, "solver_rti_filter", False),
+        rti_extra_max=getattr(st, "solver_rti_extra_max", 6),
         globalization=getattr(st, "solver_globalization", "filter"),
         n_refine_kkt=getattr(st, "solver_n_refine_kkt", 0),
     )
@@ -220,7 +230,10 @@ def make_ipm_solver(
     as it would be solved alone; the solution's fields keep the batch axis
     (``iterations`` is a per-element tensor).  ``mu0`` is a scalar or (B,).
     ``solve.newton_steps`` counts the Newton steps the batch took (one per
-    loop pass in which some element was unconverged).
+    loop pass in which some element was unconverged, and one per RTI
+    step, corrective ones included).  With ``rti_iters > 0`` a warm call
+    (``lam0`` given) takes the real-time-iteration path; a cold one runs
+    the globalized loop.
 
     The callables are batch-first: f: (B,n),(B,n_p) -> (B,); g, h ->
     (B,rows); ``grad_f_fn`` -> (B,n); ``jac_*_fn`` -> (B,rows,n);
@@ -584,6 +597,22 @@ def make_ipm_solver(
             a_p = torch.minimum(a_p, max_alpha(s, ds, tau * dl_s, ones_q))
         return a_p, dual_alpha(zl, zu, dzl, dzu, mu)
 
+    def clip_duals(w, s, zl, zu, mu):
+        """Keep the bound duals sane relative to the barrier (IPOPT's
+        kappa_Sigma): within [mu/(kap d), kap mu/d] of their distances d;
+        the upper duals only where an upper bound exists."""
+        kap = 1e10
+        dl_w, dl_s = dist_l(w, s)
+        dl = torch.clamp(torch.cat([dl_w, dl_s], -1), min=_TINY)
+        zl = torch.minimum(torch.maximum(zl, _c(mu) / (kap * dl)),
+                           kap * _c(mu) / dl)
+        du = torch.clamp(torch.cat([dist_u(w), torch.full_like(s, inf)], -1),
+                         min=_TINY)
+        zu = torch.where(
+            mask_zu, torch.minimum(torch.maximum(zu, _c(mu) / (kap * du)),
+                                   kap * _c(mu) / du), 0.0)
+        return zl, zu
+
     # -- main loop ----------------------------------------------------------
     slots = torch.arange(st.filter_size, device=device)
 
@@ -792,19 +821,7 @@ def make_ipm_solver(
         eff_ad = torch.where(use_resto, a_dr, a_d)
         zl_n = zl + _c(eff_ad) * _sel(use_resto, dzlr, dzl)
         zu_n = zu + _c(eff_ad) * _sel(use_resto, dzur, dzu)
-        # keep duals sane relative to the barrier (IPOPT's kappa_Sigma)
-        dl_w, dl_s = dist_l(w_n, s_n)
-        dl = torch.clamp(torch.cat([dl_w, dl_s], -1), min=_TINY)
-        kap = 1e10
-        zl_c = torch.minimum(torch.maximum(zl_n, _c(mu_new) / (kap * dl)),
-                             kap * _c(mu_new) / dl)
-        du = torch.clamp(torch.cat([dist_u(w_n),
-                                    torch.full_like(s_n, inf)], -1),
-                         min=_TINY)
-        zu_c = torch.where(
-            mask_zu, torch.minimum(torch.maximum(zu_n,
-                                                 _c(mu_new) / (kap * du)),
-                                   kap * _c(mu_new) / du), 0.0)
+        zl_c, zu_c = clip_duals(w_n, s_n, zl_n, zu_n, mu_new)
 
         # filter augmentation (W-B A-6): h-type acceptances and line-search
         # failures at infeasible points carve out (theta, phi)
@@ -824,15 +841,16 @@ def make_ipm_solver(
         return (w_n, s_n, lam_n, zl_c, zu_c, mu_new, prox_n, filt_th1,
                 filt_ph1, filt_n1)
 
-    def body(stt, p, active):
+    def body(stt, p, active, etol):
         """One loop pass; the caller keeps its results for ``active``
-        elements only."""
+        elements only.  An element whose KKT error is within ``etol``
+        converges."""
         w, s, lam, zl, zu = stt.w, stt.s, stt.lam, stt.zl, stt.zu
         with _range("ipm.evals"):
             pre = point_evals(w, lam, p)
             res0 = kkt_residuals(w, s, lam, zl, zu, p, pre=pre)
             err_0 = err_from(res0, 0.0)
-            converged = err_0 <= st.tol
+            converged = err_0 <= etol
         old = (w, s, lam, zl, zu, stt.mu, stt.prox, stt.filt_th,
                stt.filt_ph, stt.filt_n)
         live = active & ~converged
@@ -867,12 +885,78 @@ def make_ipm_solver(
                 out.append(_sel(active, nw, o))
         return IPMState(*out)
 
-    def solver_loop(state, p):
+    loop_tol = st.tol if st.tol_loop is None else max(st.tol_loop, st.tol)
+
+    def solver_loop(state, p, it_cap=None, exit_tol=None):
+        """The globalized loop.  ``it_cap``/``exit_tol`` parametrize the
+        filter-RTI hybrid (a small iteration budget, the drift band as the
+        exit); the defaults are the full loop's."""
+        cap = st.max_iter if it_cap is None else it_cap
+        etol = loop_tol if exit_tol is None else exit_tol
         while True:
-            active = ~state.converged & (state.it < st.max_iter)
+            active = ~state.converged & (state.it < cap)
             if not bool(active.any()):
                 return state
-            state = freeze(active, body(state, p, active), state)
+            state = freeze(active, body(state, p, active, etol), state)
+
+    # -- real-time iteration: fixed Newton steps from a warm start ----------
+    # Exactly rti_iters damped Newton steps (no line search, no barrier
+    # schedule, no convergence loop), then, with rti_drift_tol, corrective
+    # steps while an element's true KKT error is outside the band.  Each
+    # element leaves the corrective loop on its own and is frozen there (a
+    # vmapped while_loop in the JAX package): a data-dependent host loop
+    # with one sync per pass.
+    def rti_newton(stt, p, mu, live):
+        w, s, lam, zl, zu = stt.w, stt.s, stt.lam, stt.zl, stt.zu
+        with _range("ipm.evals"):
+            pre = point_evals(w, lam, p)
+        with _range("ipm.newton"):
+            (dw, ds, dlam, dzl, dzu, _soc, _delta, _resto) = newton_step(
+                w, s, lam, zl, zu, p, mu,
+                torch.clamp(stt.prox, min=st.rti_prox), pre, live)
+        solve.newton_steps += 1
+        # (the JAX step first adds dual_refit's multiplier correction,
+        # which is zero unless dual_refit is on; that is not ported)
+        a_p, a_d = fraction_to_boundary(w, s, dw, ds, zl, zu, dzl, dzu, mu)
+        # trust-region cap: scale the whole primal-dual update uniformly
+        cap = torch.clamp(st.rti_step_max / (_maxabs(dw) + 1e-12), max=1.0)
+        a_p = torch.minimum(a_p, cap)
+        a_d = torch.minimum(a_d, cap)
+        w_n = w + _c(a_p) * dw
+        s_n = s + _c(a_p) * ds
+        zl_n, zu_n = clip_duals(w_n, s_n, zl + _c(a_d) * dzl,
+                                zu + _c(a_d) * dzu, mu)
+        return stt._replace(w=w_n, s=s_n, lam=lam + _c(a_p) * dlam, zl=zl_n,
+                            zu=zu_n, it=stt.it + 1)
+
+    def rti_loop(state, p):
+        every = torch.ones_like(state.converged)
+        final = state
+        with _range("ipm.rti"):
+            for i in range(st.rti_iters):
+                final = rti_newton(final, p, state.mu * st.rti_mu_decay ** i,
+                                   every)
+        err = kkt_error(final.w, final.s, final.lam, final.zl, final.zu, p,
+                        0.0)
+        if st.rti_drift_tol is None:
+            return final._replace(kkt_err=err, converged=err <= st.tol)
+        mu_ex = torch.clamp(state.mu * st.rti_mu_decay ** st.rti_iters,
+                            min=st.tol * st.mu_min_factor)
+        final = final._replace(kkt_err=err)
+        k = torch.zeros_like(state.it)
+        with _range("ipm.rti_drift"):
+            while True:
+                go = (final.kkt_err > st.rti_drift_tol) \
+                    & (k < st.rti_extra_max)
+                if not bool(go.any()):
+                    break
+                nxt = rti_newton(final, p, mu_ex, go)
+                nxt = nxt._replace(kkt_err=kkt_error(
+                    nxt.w, nxt.s, nxt.lam, nxt.zl, nxt.zu, p, 0.0))
+                final = freeze(go, nxt, final)
+                k = k + go.to(k.dtype)
+        return final._replace(
+            converged=final.kkt_err <= max(st.rti_drift_tol, st.tol))
 
     def init_state(w0, p, lam0=None, mu0=None, zl0=None, zu0=None):
         B = w0.shape[0]
@@ -899,13 +983,28 @@ def make_ipm_solver(
         zu = torch.cat([torch.where(has_ub, z0v, 0.0),
                         torch.zeros((q,), dtype=dtype, device=device)]
                        ).expand(B, n + q)
-        # warm entries the previous solve zeroed restart at z_init
+        # warm entries the previous solve zeroed restart at z_init; pure RTI
+        # restarts them on the central path, min(z_init, mu/dist) (the
+        # globalized loop and the filter-RTI hybrid keep z_init, as in the
+        # JAX package, which measured both choices)
+        use_central = st.rti_iters > 0 and not st.rti_filter
         if zl0 is not None:
+            restart_l = zl
+            if use_central:
+                dl_w0, dl_s0 = dist_l(w, s)
+                restart_l = torch.clamp(
+                    _c(mu) / torch.clamp(torch.cat([dl_w0, dl_s0], -1),
+                                         min=1e-8), max=z0v)
             zl = torch.where(zl0 > 1e-12, torch.maximum(zl0, _c(mu) / 1e8),
-                             torch.where(mask_l, zl, 0.0))
+                             torch.where(mask_l, restart_l, 0.0))
         if zu0 is not None:
+            restart_u = zu
+            if use_central:
+                du0 = torch.cat([dist_u(w), w.new_ones((B, q))], -1)
+                restart_u = torch.clamp(
+                    _c(mu) / torch.clamp(du0, min=1e-8), max=z0v)
             zu = torch.where(zu0 > 1e-12, torch.maximum(zu0, _c(mu) / 1e8),
-                             torch.where(mask_zu, zu, 0.0))
+                             torch.where(mask_zu, restart_u, 0.0))
         gv0, hv0 = eval_all(w, p)
         theta0 = constraint_violation(gv0, hv0, s)
         theta0 = torch.where(torch.isfinite(theta0), theta0, 1.0)
@@ -983,9 +1082,45 @@ def make_ipm_solver(
     def _select(cond, a, b):
         return tuple(_sel(cond, y, x) for x, y in zip(a, b))
 
+    def solve_rti(state, p):
+        """A warm call in RTI mode (``_solve_impl``'s RTI branch of the JAX
+        package)."""
+        if st.rti_filter:
+            # filter-RTI hybrid: the globalized body with a small budget;
+            # without rti_drift_tol the exit is tol (as in JAX)
+            etol = st.tol if st.rti_drift_tol is None \
+                else max(st.rti_drift_tol, st.tol)
+            cap = st.rti_iters + (st.rti_extra_max
+                                  if st.rti_drift_tol is not None else 0)
+            final = solver_loop(state, p, it_cap=cap, exit_tol=etol)
+            # the budget exit leaves final.w one step past the last
+            # evaluated error: certify on the better evaluated point
+            err_fin = kkt_error(final.w, final.s, final.lam, final.zl,
+                                final.zu, p, 0.0)
+            wd = final.best_err < err_fin
+            w_r, s_r, lam_r, zl_r, zu_r = _select(
+                wd, (final.w, final.s, final.lam, final.zl, final.zu),
+                final.best)
+            err_r = torch.where(wd, final.best_err, err_fin)
+            return IPMSolution(
+                w=w_r, s=s_r, lam=lam_r, zl=zl_r, zu=zu_r, f=f(w_r, p),
+                kkt_err=err_r, iterations=final.it, success=err_r <= etol)
+        final = rti_loop(state, p)
+        return IPMSolution(
+            w=final.w, s=final.s, lam=final.lam, zl=final.zl, zu=final.zu,
+            f=f(final.w, p), kkt_err=final.kkt_err, iterations=final.it,
+            success=final.converged)
+
     def solve_batch(w0, p, lam0, mu0, zl0, zu0):
         state = init_state(w0, p, lam0=lam0, mu0=mu0, zl0=zl0, zu0=zu0)
+        # RTI needs a warm primal-dual start: a cold call (no lam0) runs
+        # the full globalized loop
+        if st.rti_iters > 0 and lam0 is not None:
+            return solve_rti(state, p)
         final = solver_loop(state, p)
+        # a loose tol_loop exit certifies only at tol
+        strict = final.converged if loop_tol <= st.tol \
+            else final.converged & (final.kkt_err <= st.tol)
         cur = (final.w, final.s, final.lam, final.zl, final.zu)
         if not st.do_polish:
             # watchdog: ties return the evaluated best tuple (final.w is
@@ -996,7 +1131,7 @@ def make_ipm_solver(
             return IPMSolution(
                 w=w_r, s=s_r, lam=lam_r, zl=zl_r, zu=zu_r, f=f(w_r, p),
                 kkt_err=err_r, iterations=final.it,
-                success=final.converged | (err_r <= st.tol))
+                success=strict | (err_r <= st.tol))
         # watchdog: polish whichever of (final state, best-seen iterate)
         # has the smaller true KKT error
         err_fin = kkt_error(*cur, p, 0.0)
@@ -1012,7 +1147,7 @@ def make_ipm_solver(
         return IPMSolution(
             w=w_f, s=s_f, lam=lam_f, zl=zl_f, zu=zu_f, f=f(w_f, p),
             kkt_err=err_f, iterations=final.it,
-            success=final.converged | (err_f <= st.tol))
+            success=strict | (err_f <= st.tol))
 
     def solve(w0, p, lam0=None, mu0=None, zl0=None, zu0=None):
         def to(x):

@@ -153,6 +153,16 @@ _NARY = {
 }
 
 
+def plain_tensor(make):
+    """Run the tensor factory ``make()`` outside every ``torch.func``
+    transform.  A constant made inside one (a first evaluation under
+    ``jacfwd``, say) is a wrapper of that transform's level, and reusing it
+    after the transform has exited fails functorch's level check; cached
+    constants are therefore always made plain."""
+    with torch._C._DisableFuncTorch():
+        return make()
+
+
 def _const_fn(c):
     if isinstance(c, (int, float)):
         return lambda env: c
@@ -163,7 +173,7 @@ def _const_fn(c):
         key = _meta(env)
         out = cache.get(key)
         if out is None:
-            out = cache[key] = _t(arr, env)
+            out = cache[key] = plain_tensor(lambda: _t(arr, env))
         return out
     return fn
 

@@ -1,7 +1,13 @@
 """Benchmark systems (PyTorch port): the flagship robust multi-stage CSTR
 NMPC, built through the same public API as the JAX package's
-``__graft_entry__._build_cstr_mpc``."""
+``__graft_entry__._build_cstr_mpc``, and copies of the JAX package's
+systems: oscillating masses, the CSTR model and simulator, and the
+triple tank."""
 import numpy as np
+
+from ._classic import (oscillating_masses_model,  # noqa: F401
+                       oscillating_masses_mpc, cstr_model, cstr_simulator)
+from ._triple_tank import triple_tank_model  # noqa: F401
 
 
 def cstr_robust_mpc(n_horizon=20, n_robust=1, kkt_solver="auto",

@@ -8,3 +8,8 @@ import torch
 def step_annotation(name, step_num):
     """Named range ``<name>/<step_num>`` on the profiler timeline."""
     return torch.profiler.record_function(f"{name}/{int(step_num)}")
+
+
+def annotate(name):
+    """Named range for a code region on the profiler timeline."""
+    return torch.profiler.record_function(name)

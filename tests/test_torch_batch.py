@@ -170,6 +170,37 @@ def test_batch_solver_matches_jax_throughput_mode(mpcs):
     _against_jax(mpcs, throughput_mode=True)
 
 
+def test_batch_rti_step_matches_jax(mpcs, sweeps):
+    """A cold call, then one warm RTI(3) step through ``make_shift_fn``
+    (the test_rti.py flagship settings), B=2: equal iterations (exactly 3
+    warm, each a Newton step of the batch with its band sweeps), w and u0
+    within 1e-8 relative.  RTI through the condensed BBD path."""
+    mj, mt = mpcs
+    x0s = bench_states(2, seed=6)
+    W = initial_guess_from_x0(mt, x0s)
+    kw = dict(tol=1e-6, max_iter=80, throughput_mode=True, rti_iters=3,
+              rti_prox=1e-2, rti_step_max=2.0, rti_mu_decay=0.1)
+    port, jsolve = make_batch_solver(mt, **kw), jax_make_batch_solver(mj, **kw)
+    sol_t, _ = port(x0s, W)
+    sol_j, _ = jsolve(jnp.asarray(x0s), jnp.asarray(W))
+    np.testing.assert_array_equal(sol_t.iterations.numpy(),
+                                  np.asarray(sol_j.iterations))
+    x1 = x0s * (1.0 + 1e-3)
+    steps0, qr = port.ipm.newton_steps, sweeps[0]
+    qr.calls = 0
+    w_s, lam_s, zl_s, zu_s = make_shift_fn(mt)(sol_t)
+    sol_t, u_t = port(x1, w_s, lam_s, 1e-4, zl_s, zu_s)
+    wS, lS, zlS, zuS = jax_make_shift_fn(mj)(sol_j)
+    sol_j, u_j = jsolve(jnp.asarray(x1), wS, lS, jnp.full(2, 1e-4), zlS, zuS)
+    assert sol_t.iterations.tolist() == [3, 3]
+    np.testing.assert_array_equal(sol_t.iterations.numpy(),
+                                  np.asarray(sol_j.iterations))
+    assert port.ipm.newton_steps - steps0 == 3
+    assert qr.calls == 2 * 3        # float64: one refinement pass
+    assert _rel(sol_t.w.numpy(), sol_j.w) <= 1e-8
+    assert _rel(u_t.numpy(), u_j) <= 1e-8
+
+
 class _Counting:
     """Wraps a sweep and counts its calls (on the CPU the kernels'
     counters stay at 0: the plain version runs)."""
