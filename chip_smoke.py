@@ -13,7 +13,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 3. kernels against their plain version: band_qr in float32 and float64,
    band_sweep_tiled in float32, at the flagship shape (9 chains, S=21,
    b=13, t=12), a batch of 128 flagship problems (1152 chains), the DIP
-   chain length S=101, and 1e22 diagonal entries in float32; relative
+   chain length S=101, the rotating-masses MHE's chain (1 chain, S=11,
+   b=83, t=2), and 1e22 diagonal entries in float32; relative
    error against the plain version, operator residual, the kernel's
    device time (a loop of launches into buffers allocated beforehand,
    queued while the card sleeps, so the host is ahead:
@@ -52,7 +53,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bounds, with band_qr's launches per loop;
 9. the EKF, float64 (same subprocess): the triple-tank Simulator + EKF loop
    of tests/test_ekf_lqr.py:18-51 (20 steps, seeded noise) and 3 steps of
-   a continuous CSTR EKF, on the card against the port on the CPU.
+   a continuous CSTR EKF, on the card against the port on the CPU;
+10. moving-horizon estimation, float64 (a third subprocess): (a) the
+   rotating-masses MHE at full width (N=10, 399 variables, p_est = Theta_1)
+   for 5 steps on seeded plant measurements, with the default KKT (dense
+   at this size) and with kkt_solver="tridiag" (one chain, S=11, b=83, the
+   estimated parameter in the root border: band_qr's row bucket 97);
+   every step certifies, the backends agree, the card agrees with the
+   port on the CPU at equal iterations, band_qr launches under tridiag
+   only and is held against its plain version on step 0's sweeps; (b) the
+   coupled MHE + MPC loop of tests/test_mhe_rotating_masses.py:14-44 (5
+   steps, seed 99) on the card against the port on the CPU, with ms per
+   MPC, plant and MHE step and band_qr's launches per module.
 
 Every kernel counter is set to 0 just before each path and read just
 after.  The last stdout line is {"ok": true, "device": {...}}; the line
@@ -112,6 +124,9 @@ def cuda_ms(fn, reps):
 # report no spills for them
 FLAGSHIP_INSTANCES = ("band_qr<float,13>", "band_qr<double,13>",
                       "band_sweep_tiled<13>")
+# the instances the rotating-masses MHE launches (b=83, row bucket 97):
+# reported, not gated
+MHE_INSTANCES = ("band_qr<float,97>", "band_qr<double,97>")
 
 
 # --------------------------------------------------------------------------
@@ -170,10 +185,12 @@ BAND_CASES = {
     "float32": [("flagship", (9, 21, 13, 12), False, 1e-4, 1e-5),
                 ("batch128", (9 * 128, 21, 13, 12), False, 1e-4, 1e-5),
                 ("dip_S101", (9, 101, 13, 12), False, 1e-3, 1e-5),
+                ("mhe_rotating", (1, 11, 83, 2), False, 1e-4, 1e-5),
                 ("diag_1e22", (9, 21, 13, 12), True, 1e-3, 1e-3)],
     "float64": [("flagship", (9, 21, 13, 12), False, 1e-12, 1e-13),
                 ("batch128", (9 * 128, 21, 13, 12), False, 1e-12, 1e-13),
-                ("dip_S101", (9, 101, 13, 12), False, 1e-12, 1e-13)],
+                ("dip_S101", (9, 101, 13, 12), False, 1e-12, 1e-13),
+                ("mhe_rotating", (1, 11, 83, 2), False, 1e-12, 1e-13)],
 }
 
 
@@ -861,6 +878,16 @@ def ekf_run(n_steps=20, seed=42):
                 device=str(ekf._device))
 
 
+def on_cpu(fn, *args):
+    """``fn(*args)`` with the port on the CPU (the yardstick of the card
+    runs), asked for explicitly."""
+    os.environ["DOMPC_TPU_PLATFORM"] = "cpu"
+    try:
+        return fn(*args)
+    finally:
+        os.environ.pop("DOMPC_TPU_PLATFORM")
+
+
 def _rel_max(a, b):
     a, b = np.asarray(a, dtype=float), np.asarray(b, dtype=float)
     return float(np.max(np.abs(a - b) / np.maximum(1.0, np.abs(b))))
@@ -868,17 +895,10 @@ def _rel_max(a, b):
 
 def closed_loop_f64():
     """Child process (DOMPC_TPU_X64=1): phases 8 and 9.  The CPU runs of
-    the port are the yardstick of 8a and 9, asked for explicitly."""
+    the port are the yardstick of 8a and 9."""
     from dompc_tpu_torch.solver import band_qr
 
     check(os.environ.get("DOMPC_TPU_X64") == "1", "child needs X64")
-
-    def on_cpu(fn):
-        os.environ["DOMPC_TPU_PLATFORM"] = "cpu"
-        try:
-            return fn()
-        finally:
-            os.environ.pop("DOMPC_TPU_PLATFORM")
 
     rec = {}
     # 8a: the plant
@@ -939,6 +959,244 @@ def closed_loop_f64():
     print("CL_RESULT " + json.dumps(rec), flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 10: moving-horizon estimation, float64 (child process)
+# --------------------------------------------------------------------------
+
+MHE_STEPS = 5          # estimator steps of 10a
+LOOP_STEPS = 5         # coupled-loop steps of 10b (the test's 5)
+
+
+def _sync(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mhe_measurements(n=MHE_STEPS, seed=7):
+    """Phase 10a's measurements: ``rotating_masses_simulator`` from a seeded
+    random state under a constant input (tests/test_mhe_p_est_bounds.py:
+    62-78), on the device of the environment."""
+    from dompc_tpu_torch.systems import (rotating_masses_model,
+                                         rotating_masses_simulator)
+    model = rotating_masses_model()
+    sim = rotating_masses_simulator(model)
+    sim.x0 = np.random.default_rng(seed).random(model.n_x) - 0.5
+    u0 = np.array([[0.5], [-0.5]])
+    return [np.asarray(sim.make_step(u0)).reshape(-1) for _ in range(n)]
+
+
+def mhe_run(ys, kkt_solver, record=False):
+    """``rotating_masses_mhe`` (N=10) with ``kkt_solver`` for one step per
+    measurement, on the device of the environment; the launch counters are
+    zeroed just before the steps.  With ``record``, step 0's band sweeps
+    are kept for :func:`check_recorded`."""
+    from dompc_tpu_torch.solver import band_qr
+    from dompc_tpu_torch.systems import (rotating_masses_model,
+                                         rotating_masses_mhe)
+    t0 = time.perf_counter()
+    model = rotating_masses_model()
+    mhe = rotating_masses_mhe(model)
+    if mhe.settings.kkt_solver != kkt_solver:
+        mhe.settings.kkt_solver = kkt_solver
+        mhe._create_solver()
+    setup_s = time.perf_counter() - t0
+    mhe.x0 = np.zeros(model.n_x)
+    mhe.p_est0 = 1e-4
+    mhe.set_initial_guess()
+    dev = mhe._device
+    steps, recorded = [], []
+    band_qr.band_solve.launches = 0
+    band_qr.band_solve_tiled.launches = 0
+    for k, y in enumerate(ys):
+        _sync(dev)
+        t1 = time.perf_counter()
+        with recording("band_solve", recorded, record and k == 0):
+            x = mhe.make_step(y).reshape(-1)
+        _sync(dev)
+        st = mhe.solver_stats
+        steps.append(dict(ms=(time.perf_counter() - t1) * 1e3,
+                          iters=st["iter_count"], success=st["success"],
+                          kkt_err=st["kkt_err"], x=x.tolist(),
+                          p_est=float(mhe._p_est0.data[0])))
+    asm = getattr(mhe, "_kkt_structure", None)
+    return dict(
+        kkt_solver=kkt_solver, device=str(dev), setup_s=setup_s,
+        n_opt_x=mhe.n_opt_x, steps=steps,
+        launches={"band_qr": band_qr.band_solve.launches,
+                  "band_sweep_tiled": band_qr.band_solve_tiled.launches},
+        structure=None if asm is None else [asm.C, asm.S, asm.b, asm.R],
+        recorded=recorded)
+
+
+def coupled_loop_run(n_steps=LOOP_STEPS):
+    """The coupled loop of tests/test_mhe_rotating_masses.py:14-44 (seed
+    99): ``mpc.make_step`` -> ``Simulator.make_step`` -> ``mhe.make_step``
+    on the device of the environment, with each module's ms and band
+    launches per step."""
+    from dompc_tpu_torch.solver import band_qr
+    from dompc_tpu_torch.systems import (
+        rotating_masses_model, rotating_masses_mpc,
+        rotating_masses_simulator, rotating_masses_mhe)
+    model = rotating_masses_model()
+    mpc = rotating_masses_mpc(model)
+    sim = rotating_masses_simulator(model)
+    mhe = rotating_masses_mhe(model)
+    dev = mpc._device
+    np.random.seed(99)
+    x0_true = np.random.rand(model.n_x) - 0.5
+    x0 = np.zeros(model.n_x)
+    mpc.x0 = x0
+    sim.x0 = x0_true
+    mhe.x0 = x0
+    mhe.p_est0 = 1e-4
+    mpc.set_initial_guess()
+    mhe.set_initial_guess()
+    rec = {k: [] for k in ("u", "y", "x", "p_est", "mpc_ms", "sim_ms",
+                           "mhe_ms", "mpc_iters", "mhe_iters",
+                           "mpc_success", "mhe_success")}
+    launches = {"mpc": 0, "sim": 0, "mhe": 0}
+
+    def timed(name, fn, arg):
+        n0 = band_qr.band_solve.launches
+        _sync(dev)
+        t1 = time.perf_counter()
+        out = np.asarray(fn(arg)).reshape(-1)
+        _sync(dev)
+        rec[name + "_ms"].append((time.perf_counter() - t1) * 1e3)
+        launches[name] += band_qr.band_solve.launches - n0
+        return out
+
+    band_qr.band_solve.launches = 0
+    band_qr.band_solve_tiled.launches = 0
+    for _ in range(n_steps):
+        u0 = timed("mpc", mpc.make_step, x0)
+        y = timed("sim", sim.make_step, u0.reshape(-1, 1))
+        x0 = timed("mhe", mhe.make_step, y)
+        for key, val in (("u", u0), ("y", y), ("x", x0)):
+            rec[key].append(val.tolist())
+        rec["p_est"].append(float(mhe._p_est0.data[0]))
+        for name, obj in (("mpc", mpc), ("mhe", mhe)):
+            rec[f"{name}_iters"].append(obj.solver_stats["iter_count"])
+            rec[f"{name}_success"].append(bool(obj.solver_stats["success"]))
+    rec.update(launches=launches, device=str(dev),
+               tiled_launches=band_qr.band_solve_tiled.launches,
+               mpc_kkt=("condensed" if hasattr(mpc, "_kkt_structure_cond")
+                        else "bbd" if hasattr(mpc, "_kkt_structure")
+                        else "dense"),
+               mhe_kkt="bbd" if hasattr(mhe, "_kkt_structure") else "dense")
+    return rec
+
+
+def _p_rel(a, b):
+    """Relative difference of two estimated-parameter sequences (the
+    parameter is ~1e-4, so a difference relative to max(1, |b|) would be
+    no check)."""
+    a, b = np.asarray(a, dtype=float), np.asarray(b, dtype=float)
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def mhe_f64():
+    """Child process (DOMPC_TPU_X64=1): phase 10.  The CPU runs of the port
+    are the yardstick."""
+    from dompc_tpu_torch.solver import band_qr
+
+    check(os.environ.get("DOMPC_TPU_X64") == "1", "child needs X64")
+
+    rec = {}
+    # 10a: the estimator alone, both KKT backends on the card, against the
+    # port on the CPU (default backend: the two backends take the same
+    # iterations, and the card's agree with each other below)
+    ys = on_cpu(mhe_measurements)
+    cpu = on_cpu(mhe_run, ys, "auto")
+    check(cpu["device"] == "cpu", f"reference MHE on {cpu['device']}")
+    runs = {}
+    for kkt in ("auto", "tridiag"):
+        gpu = mhe_run(ys, kkt, record=kkt == "tridiag")
+        check(gpu["device"].startswith("cuda"), f"MHE on {gpu['device']}")
+        for run in (gpu, cpu):
+            bad = [k for k, st in enumerate(run["steps"])
+                   if not st["success"]]
+            check(not bad, f"MHE {run['kkt_solver']} on {run['device']}: "
+                           f"steps {bad} did not certify")
+        it_g = [st["iters"] for st in gpu["steps"]]
+        it_c = [st["iters"] for st in cpu["steps"]]
+        x_rel = _rel_max([st["x"] for st in gpu["steps"]],
+                         [st["x"] for st in cpu["steps"]])
+        p_rel = _p_rel([st["p_est"] for st in gpu["steps"]],
+                       [st["p_est"] for st in cpu["steps"]])
+        row = dict(kkt_solver=kkt, n_opt_x=gpu["n_opt_x"],
+                   structure=gpu["structure"], setup_s=gpu["setup_s"],
+                   ms=[st["ms"] for st in gpu["steps"]],
+                   cpu_dense_ms=[st["ms"] for st in cpu["steps"]],
+                   iters=it_g, cpu_dense_iters=it_c,
+                   kkt_err=[st["kkt_err"] for st in gpu["steps"]],
+                   p_est=[st["p_est"] for st in gpu["steps"]],
+                   card_vs_cpu_x=x_rel, card_vs_cpu_p_est=p_rel,
+                   launches=gpu["launches"])
+        n = gpu["launches"]
+        if kkt == "tridiag":
+            check(gpu["structure"] == [1, 11, 83, 1],
+                  f"MHE tridiag structure {gpu['structure']} (want one "
+                  "chain, S=11, b=83, R=1)")
+            check(n["band_qr"] > 0 and n["band_sweep_tiled"] == 0,
+                  f"MHE tridiag: launches {n}")
+            row["kkt"] = check_recorded(gpu["recorded"], "band_qr",
+                                        band_qr.band_solve,
+                                        "float64 MHE tridiag step 0")
+        else:
+            check(gpu["structure"] is None and n["band_qr"] == 0
+                  and n["band_sweep_tiled"] == 0,
+                  f"MHE auto at {gpu['n_opt_x']} variables: structure "
+                  f"{gpu['structure']}, launches {n} (want the dense KKT)")
+        print("mhe " + json.dumps(row), flush=True)
+        check(it_g == it_c and x_rel <= 1e-6 and p_rel <= 1e-6,
+              f"MHE {kkt}: card vs CPU iterations {it_g} / {it_c}, x rel "
+              f"{x_rel:.2e}, p_est rel {p_rel:.2e} (bound 1e-6)")
+        runs[kkt] = (row, gpu)
+    x_rel = _rel_max([st["x"] for st in runs["tridiag"][1]["steps"]],
+                     [st["x"] for st in runs["auto"][1]["steps"]])
+    p_rel = _p_rel([st["p_est"] for st in runs["tridiag"][1]["steps"]],
+                   [st["p_est"] for st in runs["auto"][1]["steps"]])
+    print(f"  MHE tridiag vs dense on the card: x rel {x_rel:.2e}, p_est "
+          f"rel {p_rel:.2e} (bound 1e-6)", flush=True)
+    check(x_rel <= 1e-6 and p_rel <= 1e-6,
+          f"MHE tridiag vs dense: x rel {x_rel:.2e}, p_est rel {p_rel:.2e}")
+    rec["mhe"] = {kkt: row for kkt, (row, _) in runs.items()}
+    rec["mhe_backends_x_rel"], rec["mhe_backends_p_est_rel"] = x_rel, p_rel
+    # 10b: the coupled loop
+    t0 = time.perf_counter()
+    gpu = coupled_loop_run()
+    wall = time.perf_counter() - t0
+    cpu = on_cpu(coupled_loop_run)
+    check(gpu["device"].startswith("cuda") and cpu["device"] == "cpu",
+          f"coupled loop devices {gpu['device']} / {cpu['device']}")
+    for run in (gpu, cpu):
+        check(all(run["mpc_success"]) and all(run["mhe_success"]),
+              f"coupled loop on {run['device']}: MPC certified "
+              f"{run['mpc_success']}, MHE certified {run['mhe_success']}")
+    rel = {k: _rel_max(gpu[k], cpu[k]) for k in ("u", "y", "x")}
+    rel["p_est"] = _p_rel(gpu["p_est"], cpu["p_est"])
+    loop = {k: gpu[k] for k in ("mpc_ms", "sim_ms", "mhe_ms", "mpc_iters",
+                                "mhe_iters", "launches", "tiled_launches",
+                                "mpc_kkt", "mhe_kkt")}
+    loop.update(wall_s=wall, card_vs_cpu=rel, cpu_mpc_iters=cpu["mpc_iters"],
+                cpu_mhe_iters=cpu["mhe_iters"], cpu_mpc_ms=cpu["mpc_ms"],
+                cpu_sim_ms=cpu["sim_ms"], cpu_mhe_ms=cpu["mhe_ms"],
+                p_est=gpu["p_est"])
+    print("coupled_loop " + json.dumps(loop), flush=True)
+    check(max(rel.values()) <= 1e-6 and gpu["mpc_iters"] == cpu["mpc_iters"]
+          and gpu["mhe_iters"] == cpu["mhe_iters"],
+          f"coupled loop on the card vs the CPU: {rel} (bound 1e-6), MPC "
+          f"iterations {gpu['mpc_iters']} / {cpu['mpc_iters']}, MHE "
+          f"{gpu['mhe_iters']} / {cpu['mhe_iters']}")
+    check(gpu["launches"]["mpc"] > 0 and gpu["tiled_launches"] == 0,
+          f"coupled loop: launches {gpu['launches']}, tiled "
+          f"{gpu['tiled_launches']}")
+    rec["coupled_loop"] = loop
+    print("MHE_RESULT " + json.dumps(rec), flush=True)
+
+
 def run_child(flag, timeout):
     """Run this script with ``flag`` in a float64 child; echo its lines,
     fail with its errors, return its result line's JSON."""
@@ -947,7 +1205,7 @@ def run_child(flag, timeout):
                            env=env, cwd=ROOT, capture_output=True, text=True,
                            timeout=timeout)
     tag = {"--main-path-f64": "F64_RESULT ", "--closed-loop-f64":
-           "CL_RESULT "}[flag]
+           "CL_RESULT ", "--mhe-f64": "MHE_RESULT "}[flag]
     out = child.stdout
     sys.stdout.write("".join(l + "\n" for l in out.splitlines()
                              if not l.startswith(tag)))
@@ -996,6 +1254,9 @@ def main():
         for rep in band_qr.ptxas_report(log):
             print(f"  ptxas: {json.dumps(rep)}", flush=True)
             ptxas[rep["instance"]] = rep
+    for inst in MHE_INSTANCES:
+        print(f"  ptxas bucket 97 (MHE, b=83): {json.dumps(ptxas.get(inst))}",
+              flush=True)
     if ptxas:   # empty only when build/ already held both libraries
         for inst in FLAGSHIP_INSTANCES:
             rep = ptxas.get(inst)
@@ -1028,6 +1289,11 @@ def main():
     print("closed loop and EKF float64 (subprocess):", flush=True)
     loop64 = run_child("--closed-loop-f64", 600)
     print("closed_loop " + json.dumps(loop64), flush=True)
+    # 10. moving-horizon estimation and the coupled loop, float64
+    print("MHE and the coupled MHE + MPC loop float64 (subprocess):",
+          flush=True)
+    mhe64 = run_child("--mhe-f64", 600)
+    print("mhe_phase " + json.dumps(mhe64), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def row(kname, case):
@@ -1045,12 +1311,18 @@ def main():
         "band_sweep_tiled": {"batched_f32_B128_pallas_tiled": sum(
             c["launches"]["band_sweep_tiled"]
             for c in runs["pallas_tiled"])}}
+    mhe, cpl = mhe64["mhe"], mhe64["coupled_loop"]
     for kname, paths in by_path.items():
         paths.update({
             "rti_f32_B128": rti["modes"]["rti"]["launches"][kname],
             "rti_drift_f32_B128": rti["modes"]["rti_drift"]["launches"][kname],
             "closed_loop_f64_full": cl["full_launches"][kname],
-            "closed_loop_f64_rti": cl["rti_launches"][kname]})
+            "closed_loop_f64_rti": cl["rti_launches"][kname],
+            "mhe_f64_tridiag": mhe["tridiag"]["launches"][kname],
+            "mhe_f64_auto_dense": mhe["auto"]["launches"][kname]})
+    by_path["band_qr"].update({
+        f"coupled_loop_f64_{mod}": n for mod, n in cpl["launches"].items()})
+    by_path["band_sweep_tiled"]["coupled_loop_f64"] = cpl["tiled_launches"]
     kernels = []
     for kname, src, line, main_path in (
             ("band_qr", "dompc_tpu_torch/csrc/band_qr.cu",
@@ -1068,10 +1340,20 @@ def main():
             "wrapper_ms": flag["wrapper_ms"],
             "ns_per_column_step": flag["ns_per_column_step"],
             "ms_batch128": b128["ms"], "bound_ms_batch128": b128["bound_ms"],
+            # the rotating-masses MHE's chain (1, 11, 83, 2), row bucket 97
+            "mhe_rotating": {
+                r["dtype"]: {k: r[k] for k in (
+                    "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "max_abs_err")}
+                for r in rows if r["kernel"] == kname
+                and r["case"] == "mhe_rotating"},
             "launches_by_path": by_path[kname],
             "ptxas_flagship": [ptxas.get(i) for i in FLAGSHIP_INSTANCES
                                if i.startswith(kname + "<")],
-            "kkt_sweeps": [kkt, run64["kkt"], rti["kkt"]]
+            "ptxas_bucket97": [ptxas.get(i) for i in MHE_INSTANCES
+                               if i.startswith(kname + "<")],
+            "kkt_sweeps": [kkt, run64["kkt"], rti["kkt"],
+                           mhe["tridiag"]["kkt"]]
             if kname == "band_qr" else [batched["kkt"]]})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1087,5 +1369,8 @@ if __name__ == "__main__":
     elif sys.argv[1:] == ["--closed-loop-f64"]:
         sys.path.insert(0, ROOT)
         closed_loop_f64()
+    elif sys.argv[1:] == ["--mhe-f64"]:
+        sys.path.insert(0, ROOT)
+        mhe_f64()
     else:
         main()

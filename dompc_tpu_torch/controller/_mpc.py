@@ -37,9 +37,9 @@ from ..tools import _profiler as profiler
 from ..tools._optxview import make_mpc_resolver
 from ..data import MPCData
 from ..solver.ipm import make_ipm_solver, ipm_settings_from
-from ..solver.bbd import (BBDAssembler, CondensedAssembler, bbd_solve,
-                          band_backend, demote_by_usage, scatter_sum_cols,
-                          ROOT)
+from ..solver.bbd import (BBDAssembler, CondensedAssembler, bbd_kkt_solve,
+                          bbd_solve, band_backend, demote_by_usage,
+                          scatter_sum_cols, ROOT)
 from .. import sym as casym
 from ._controllersettings import MPCSettings
 
@@ -888,10 +888,7 @@ class MPC(Optimizer, IteratedVariables):
             self.n_opt_lagr, self._n_ineq, chains[6], device=self._device)
         self._kkt_structure = assembler
         m = self.n_opt_lagr
-        mask_c = self._tensor(assembler.w_mask_chain)
-        mask_r = self._tensor(assembler.w_mask_root)
         prepare_derivs = self._prepare_fn()
-        backend = band_backend(self._dtype, self._device)
 
         def prepare(w, pvec, lam_g, lam_h, sig_w, inv_sig_s):
             Hi, Jg_i, Jh_i, _, _ = prepare_derivs(w, pvec, lam_g, lam_h,
@@ -901,20 +898,9 @@ class MPC(Optimizer, IteratedVariables):
                 -delta_cons * w.new_ones((w.shape[0], m)),
                 -inv_sig_s - delta_cons)
 
-        def solve(ctx, r_dw, r_g, r_h_mod, delta):
-            D, U, Lo, Bord, Root = ctx
-            D = D + torch.diag_embed(delta[:, None, None, None] * mask_c)
-            if assembler.R:
-                Root = Root + torch.diag_embed(delta[:, None] * mask_r)
-            rhs_c, rhs_r = assembler.pack_rhs(-r_dw, -r_g, -r_h_mod)
-            # float32 takes no refinement pass (the IPM's inexact-Newton
-            # acceptance absorbs the rest); float64 takes n_refine
-            n_ref = 0 if r_dw.dtype == torch.float32 else n_refine
-            x_c, x_r = bbd_solve(D, U, Lo, Bord, Root, rhs_c, rhs_r,
-                                 n_refine=n_ref, backend=backend)
-            return assembler.unpack_sol(x_c, x_r)
-
-        return prepare, solve
+        return prepare, bbd_kkt_solve(
+            assembler, self._dtype, band_backend(self._dtype, self._device),
+            n_refine)
 
     def _nl_cons_z_independent(self):
         """Probe whether the nl_cons rows are structurally independent of

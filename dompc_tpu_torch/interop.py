@@ -3,7 +3,8 @@
 The parity tests build the JAX objects and the port's from the same
 construction code (model constants and uncertainty values come along that
 way), then start both from the same numeric point: an MPC's solver with
-:func:`load_mpc_state`, a Simulator or an EKF with :func:`load_loop_state`.
+:func:`load_mpc_state`, an MHE's with :func:`load_mhe_state`, a Simulator
+or an EKF with :func:`load_loop_state`.
 Only numpy arrays cross: this module imports nothing of JAX.
 """
 import numpy as np
@@ -89,3 +90,41 @@ def load_loop_state(obj, arrays):
     if "z0" in arrays and hasattr(obj, "_z_guess"):
         obj._z_guess = obj.z0.data.copy()
     return obj
+
+
+MHE_KEYS = ("opt_x_num", "_lam_warm", "_zl_warm", "_zu_warm", "_x0",
+            "_p_est0", "_u0", "_z0", "_t0", "initial_run", "_y")
+
+
+def mhe_state_arrays(mhe):
+    """The numeric state of an MHE of either package, as numpy arrays under
+    :data:`MHE_KEYS`: the decision vector, the warm multipliers and bound
+    duals (absent before the first solve), the arrival point x0 and
+    p_est0, u0, z0, the time, the initial-run flag and the measurement
+    history ``data._y`` that the default ``y_fun`` reads."""
+    out = {"initial_run": bool(mhe.flags["initial_run"]),
+           "_y": np.array(mhe.data._y, dtype=float)}
+    for key in MHE_KEYS[:-2]:
+        val = getattr(mhe, key, None)
+        if val is not None:
+            out[key] = np.array(getattr(val, "data", val), dtype=float)
+    return out
+
+
+def load_mhe_state(mhe, arrays):
+    """Load numeric state (as produced by :func:`mhe_state_arrays` on a JAX
+    MHE) into a set-up port MHE with the same layout, so that its next
+    ``make_step`` starts where the other one's would."""
+    assert mhe.flags["setup"], "set up the MHE before loading state"
+    if arrays["opt_x_num"].shape != (mhe.n_opt_x,):
+        raise ValueError("state does not match this MHE's layout")
+    mhe.opt_x_num = np.array(arrays["opt_x_num"], dtype=float)
+    for key in ("_lam_warm", "_zl_warm", "_zu_warm", "_t0"):
+        if key in arrays:
+            setattr(mhe, key, np.array(arrays[key], dtype=float))
+    for key in ("_x0", "_p_est0", "_u0", "_z0"):
+        getattr(mhe, key).data[:] = arrays[key]
+    mhe.data._y = np.array(arrays["_y"], dtype=float)
+    mhe.flags["initial_run"] = bool(arrays["initial_run"])
+    mhe.flags["set_initial_guess"] = True
+    return mhe

@@ -1,4 +1,4 @@
-"""Shared MPC optimization machinery (PyTorch port).
+"""Shared MPC/MHE optimization machinery (PyTorch port).
 
 Counterpart of the JAX package's ``optimizer.py``:
 
@@ -196,7 +196,7 @@ def make_stage_residual(model, settings, x_scaling, z_scaling, u_scaling,
 # ---------------------------------------------------------------------------
 
 class Optimizer:
-    """Base class for MPC (reference: optimizer.py:34)."""
+    """Base class for MPC and MHE (reference: optimizer.py:34)."""
 
     def _init_optimizer(self):
         model = self.model
@@ -288,7 +288,8 @@ class Optimizer:
 
     @property
     def scaling(self):
-        """``mpc.scaling['_x','T_R'] = 100`` (reference: optimizer.py:356)."""
+        """``mpc.scaling['_x','T_R'] = 100`` (reference: optimizer.py:356).
+        MHE additionally accepts ``'_p_est'`` (reference: optimizer.py:404)."""
         def get(key):
             tgt = getattr(self, self._SCALING_MAP[key[0]])
             return tgt[key[1:]] if len(key) > 1 else tgt
@@ -308,7 +309,8 @@ class Optimizer:
         (reference: optimizer.py:483-541)."""
         assert not self.flags["setup"], "Cannot call set_nl_cons after setup."
         expr = casym.to_sym(expr)
-        shape = self.model._expr_shape(expr)
+        shape = self.model._expr_shape(
+            expr, extra_specs=getattr(self, "_nl_cons_extra_specs", None))
         if soft_constraint:
             self.slack_vars_list.append({
                 "slack_name": expr_name, "shape": shape,

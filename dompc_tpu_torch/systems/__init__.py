@@ -1,13 +1,17 @@
 """Benchmark systems (PyTorch port): the flagship robust multi-stage CSTR
 NMPC, built through the same public API as the JAX package's
 ``__graft_entry__._build_cstr_mpc``, and copies of the JAX package's
-systems: oscillating masses, the CSTR model and simulator, and the
-triple tank."""
+systems: oscillating masses, the CSTR model and simulator, the triple
+tank, and the rotating masses of the coupled MHE + MPC loop."""
 import numpy as np
 
 from ._classic import (oscillating_masses_model,  # noqa: F401
                        oscillating_masses_mpc, cstr_model, cstr_simulator)
 from ._triple_tank import triple_tank_model  # noqa: F401
+from ._rotating_masses import (rotating_masses_model,  # noqa: F401
+                               rotating_masses_mpc,
+                               rotating_masses_simulator,
+                               rotating_masses_mhe)
 
 
 def cstr_robust_mpc(n_horizon=20, n_robust=1, kkt_solver="auto",

@@ -20,7 +20,9 @@ Index semantics match the reference struct:
   indices beyond the tree width at stage ``k`` clamp to the last live
   scenario (the reference pads the struct with unused entries instead).
 * ``['_z', k, s, j]``, ``['_u', k, s]``, ``['_eps', k, s]`` analogous.
-  (The MHE resolver waits for the estimator slice of the port.)
+* MHE (one chain, no scenario axis): ``['_x', k, j]``, ``['_z', k, j]``,
+  ``['_u', k]``, ``['_w', k]``, ``['_v', k]``, ``['_eps', k]`` and the
+  stage-free ``['_p_est']``.
 * A trailing variable name selects that block, e.g.
   ``mpc.opt_x_num['_x', 1, 0, -1, 'C_a']``.
 * Slices on any structural axis return (nested) lists, like the CasADi
@@ -215,4 +217,47 @@ def make_mpc_resolver(mpc):
         fields["_eps"] = ((n_eps_rep, n_max), feps)
     specs = {"_x": model.spec("_x"), "_u": model.spec("_u"),
              "_z": model.spec("_z"), "_eps": mpc._eps_spec}
+    return OptXResolver(fields, specs)
+
+
+def make_mhe_resolver(mhe):
+    """Build the resolver for an MHE layout (after setup)."""
+    L = mhe.layout
+    model = mhe.model
+    N = mhe.settings.n_horizon
+    n_coll = mhe.n_total_coll_points
+    n_x, n_z = model.n_x, model.n_z
+    n_coll_z = max(n_coll, 1)
+    n_eps_rep = 1 if mhe.settings.nl_cons_single_slack else N
+
+    def fx(k, j):
+        if j == n_coll:
+            return L.idx(("x_node", k, 0))
+        if k == 0:
+            raise IndexError(
+                "['_x', 0, j] for j < n_coll addresses the reference's "
+                "dummy initial collocation entries, which do not exist in "
+                "this layout — use j = -1 for the initial node")
+        return L.idx(("x_coll", k - 1, 0))[j * n_x:(j + 1) * n_x]
+
+    def fz(k, j):
+        return L.idx(("z", k, 0))[j * n_z:(j + 1) * n_z]
+
+    fields = {"_x": ((N + 1, n_coll + 1), fx),
+              "_u": ((N,), lambda k: L.idx(("u", k, 0)))}
+    if n_z:
+        fields["_z"] = ((N, n_coll_z), fz)
+    if model.n_w:
+        fields["_w"] = ((N,), lambda k: L.idx(("w", k)))
+    if model.n_v:
+        fields["_v"] = ((N,), lambda k: L.idx(("v", k)))
+    if mhe.n_eps_vars:
+        fields["_eps"] = ((n_eps_rep,),
+                          lambda k: L.idx(("eps", k, 0)))
+    if mhe.n_p_est:
+        fields["_p_est"] = ((), lambda: L.idx(("p_est",)))
+    specs = {"_x": model.spec("_x"), "_u": model.spec("_u"),
+             "_z": model.spec("_z"), "_w": model.spec("_w"),
+             "_v": model.spec("_v"), "_eps": mhe._eps_spec,
+             "_p_est": mhe._p_est_spec}
     return OptXResolver(fields, specs)
