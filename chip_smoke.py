@@ -12,9 +12,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    instances (row bucket 13) must not spill;
 3. kernels against their plain version: band_qr in float32 and float64,
    band_sweep_tiled in float32, at the flagship shape (9 chains, S=21,
-   b=13, t=12), a batch of 128 flagship problems (1152 chains), the DIP
-   chain length S=101, the rotating-masses MHE's chain (1 chain, S=11,
-   b=83, t=2), and 1e22 diagonal entries in float32; relative
+   b=13, t=12), a batch of 128 flagship problems (1152 chains), the
+   flagship's width at S=101, the rotating-masses MHE's chain (1 chain,
+   S=11, b=83, t=2), the double inverted pendulum's chain (1, 101, 23, 1)
+   and the two sweeps of its SPIKE solve (13 segments (13, 7, 23, 47),
+   the reduced system (1, 12, 23, 1)), and 1e22 diagonal entries in
+   float32; relative
    error against the plain version, operator residual, the kernel's
    device time (a loop of launches into buffers allocated beforehand,
    queued while the card sleeps, so the host is ahead:
@@ -22,7 +25,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (device time over S*b), and the plain version's and
    torch.linalg.solve's (dense yardstick) times;
 4. make_step: the flagship robust CSTR NMPC (N=20, 9 scenarios) through
-   Model -> MPC.setup() -> set_initial_guess() -> 5 make_step calls (a
+   Model -> MPC.setup() -> set_initial_guess() -> 3 make_step calls (a
    batch of one in the solver) on the card, in float32 (solver_tol 1e-4,
    60 iterations) and in float64 (in a subprocess with DOMPC_TPU_X64=1);
    the float64 pass also solves the first step with the port on the CPU
@@ -48,32 +51,53 @@ Phases, each fatal on failure (non-zero exit, no result line):
    more RTI call;
 8. the closed loop, float64 (a second subprocess): (a) three
    cstr_simulator steps on the card against the port on the CPU, (b) the
-   flagship against Simulator for 8 steps fully converged and in RTI(3)
-   warm-started through make_shift_fn, held to tests/test_rti.py:93-151's
-   bounds, with band_qr's launches per loop;
+   flagship against Simulator for 3 steps (tests/test_rti.py:93-151 takes
+   8) fully converged and in RTI(3) warm-started through make_shift_fn,
+   held to that test's bounds, with band_qr's launches per loop;
 9. the EKF, float64 (same subprocess): the triple-tank Simulator + EKF loop
-   of tests/test_ekf_lqr.py:18-51 (20 steps, seeded noise) and 3 steps of
+   of tests/test_ekf_lqr.py:18-51 (20 steps, seeded noise) and 1 step of
    a continuous CSTR EKF, on the card against the port on the CPU;
 10. moving-horizon estimation, float64 (a third subprocess): (a) the
    rotating-masses MHE at full width (N=10, 399 variables, p_est = Theta_1)
-   for 5 steps on seeded plant measurements, with the default KKT (dense
+   for 1 step on a seeded plant measurement, with the default KKT (dense
    at this size) and with kkt_solver="tridiag" (one chain, S=11, b=83, the
    estimated parameter in the root border: band_qr's row bucket 97);
    every step certifies, the backends agree, the card agrees with the
    port on the CPU at equal iterations, band_qr launches under tridiag
    only and is held against its plain version on step 0's sweeps; (b) the
-   coupled MHE + MPC loop of tests/test_mhe_rotating_masses.py:14-44 (5
-   steps, seed 99) on the card against the port on the CPU, with ms per
-   MPC, plant and MHE step and band_qr's launches per module.
+   coupled MHE + MPC loop of tests/test_mhe_rotating_masses.py:14-44 (1
+   of its 5 steps, seed 99) on the card against the port on the CPU, with
+   ms per MPC, plant and MHE step and band_qr's launches per module;
+11. the double inverted pendulum (float64 and float32, each in a
+   subprocess of its own; their cold solves run side by side, all that
+   follows them one child at a time): dip_model ->
+   dip_mpc (N=100, Radau degree 3, one chain of S=101 stages, b=23) ->
+   dip_simulator from theta = 0.9 pi (tests/test_dip.py:146-170).  In
+   float64 the cold solve and 3 closed-loop steps with StateFeedback,
+   step 0 held against the port on the CPU (u0 and the whole solution;
+   that yardstick runs in a third subprocess, beside the cold solves);
+   in float32 (solver_tol 1e-4) the cold solve and 2 warm steps.  Every
+   step certifies; every KKT solve takes the SPIKE partition (13
+   segments) and launches band_qr 2 x (1 + n_refine) times, and never
+   the tiled kernel; step 0's SPIKE solves are held, kernel-SPIKE against
+   the plain SPIKE on a CPU copy by backward error, and timed against the
+   unpartitioned kernel (DOMPC_TPU_SPIKE=0);
+12. the LQR, float64 (the float64 DIP's subprocess): the batch reactor's
+   dae2odeconversion -> linearize -> discretize -> LQR loop against its
+   linear model in Simulator (tests/test_more_examples.py:128-163, 5
+   steps), on the card against the port on the CPU.
 
 Every kernel counter is set to 0 just before each path and read just
-after.  The last stdout line is {"ok": true, "device": {...}}; the line
+after.  The timed phases run one after another, but for the two cold DIP
+solves, which run beside each other and the CPU yardstick of phase 11;
+each heading carries the seconds since the start.  The last stdout line is {"ok": true, "device": {...}}; the line
 before it lists the kernels, and the one before that names the card and
 its power limit.  Needs CUDA; exits non-zero without it.
 """
 import contextlib
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -127,6 +151,8 @@ FLAGSHIP_INSTANCES = ("band_qr<float,13>", "band_qr<double,13>",
 # the instances the rotating-masses MHE launches (b=83, row bucket 97):
 # reported, not gated
 MHE_INSTANCES = ("band_qr<float,97>", "band_qr<double,97>")
+# the instances the DIP launches (b=23, row bucket 32): reported, not gated
+DIP_INSTANCES = ("band_qr<float,32>", "band_qr<double,32>")
 
 
 # --------------------------------------------------------------------------
@@ -181,16 +207,27 @@ def dense_chain(D, U, Lo):
 # At S=101 in float32 the error compounds over five times as many stages;
 # the residual is the check that counts there.  With a 1e22 diagonal the
 # bound of tests/test_pallas_band.py:126-147 (residual 1e-3) applies.
+# The DIP's chains (b=23, row bucket 32): the whole chain (1, 101, 23, 1),
+# which DOMPC_TPU_SPIKE=0 sweeps, and the two sweeps of its SPIKE solve,
+# the 13 segments of 7 stages with 2b + 1 right-hand sides and the reduced
+# system over the 12 separators.
+DIP_SHAPES = (("dip_chain", (1, 101, 23, 1)),
+              ("dip_spike_seg", (13, 7, 23, 47)),
+              ("dip_spike_red", (1, 12, 23, 1)))
 BAND_CASES = {
     "float32": [("flagship", (9, 21, 13, 12), False, 1e-4, 1e-5),
                 ("batch128", (9 * 128, 21, 13, 12), False, 1e-4, 1e-5),
-                ("dip_S101", (9, 101, 13, 12), False, 1e-3, 1e-5),
+                ("flagship_width_S101", (9, 101, 13, 12), False, 1e-3, 1e-5),
                 ("mhe_rotating", (1, 11, 83, 2), False, 1e-4, 1e-5),
-                ("diag_1e22", (9, 21, 13, 12), True, 1e-3, 1e-3)],
+                ("diag_1e22", (9, 21, 13, 12), True, 1e-3, 1e-3)]
+    + [(name, shape, False, 1e-3 if shape[1] > 21 else 1e-4, 1e-5)
+       for name, shape in DIP_SHAPES],
     "float64": [("flagship", (9, 21, 13, 12), False, 1e-12, 1e-13),
                 ("batch128", (9 * 128, 21, 13, 12), False, 1e-12, 1e-13),
-                ("dip_S101", (9, 101, 13, 12), False, 1e-12, 1e-13),
-                ("mhe_rotating", (1, 11, 83, 2), False, 1e-12, 1e-13)],
+                ("flagship_width_S101", (9, 101, 13, 12), False, 1e-12,
+                 1e-13),
+                ("mhe_rotating", (1, 11, 83, 2), False, 1e-12, 1e-13)]
+    + [(name, shape, False, 1e-12, 1e-13) for name, shape in DIP_SHAPES],
 }
 
 
@@ -268,6 +305,8 @@ def kernel_phase():
 # --------------------------------------------------------------------------
 # phase 4: main path
 # --------------------------------------------------------------------------
+
+MAIN_STEPS = 3         # make_step calls per dtype (cut from 5 for time)
 
 def drive_main_path(n_steps, f32_settings, record=False):
     """Flagship robust CSTR on the card: returns the steps' records.  The
@@ -348,30 +387,60 @@ def recording(name, recorded, on=True):
 
 # The sweeps of a real step are barrier-scaled KKT chains: ill-conditioned,
 # with diagonals up to ~1e22 in float32, so neither solver is accurate to
-# float32 roundoff there.  The kernel is held to its twin's own accuracy on
-# the same inputs: its residual and its error against the float64 twin
-# within KKT_FACTOR times the twin's, plus KKT_FLOOR (~10 float32 eps; in
-# float64 the BAND_CASES bound) for inputs where the twin is exact to
-# roundoff.  In float64 the twin is the reference itself, so its error is
-# taken as the distance between it and a second float64 solver (a dense LU
-# solve of the chains): the kernel must agree with the plain version to 10
-# times what two float64 solvers agree to.
+# float32 roundoff there.  Every recorded sweep is held by its normwise
+# backward error, ||A x - b|| / (||A|| ||x|| + ||b||) in the infinity norm
+# for each chain and right-hand side, which a backward-stable Householder
+# sweep keeps near float eps however ill-conditioned the chain: the
+# kernel's within KKT_FACTOR times the plain version's plus BE_FLOOR eps.
+# Where the sweep is of a whole chain (``forward``), the kernel is also
+# held to its twin's forward accuracy on the same inputs: its residual
+# relative to max |rhs| and its error against the float64 twin within
+# KKT_FACTOR times the twin's, plus KKT_FLOOR (~10 float32 eps; in float64
+# the BAND_CASES bound) for inputs where the twin is exact to roundoff.  In
+# float64 the twin is the reference itself, so its error is taken as the
+# distance between it and a second float64 solver (a dense LU solve of the
+# chains): the kernel must agree with the plain version to 10 times what
+# two float64 solvers agree to.  A SPIKE segment (a piece of the chain cut
+# loose from its neighbours) and a SPIKE solve are far worse conditioned
+# than the chain: in float32 neither implementation keeps a correct digit
+# of a segment's solution, and which lands closer on one input is luck
+# (PERF.md §6), so they are held by backward error alone.
 KKT_FACTOR = 10.0
 KKT_FLOOR = {"float32": 1e-6, "float64": 1e-12}
+BE_FLOOR = 100.0
 
 
-def check_recorded(recorded, kname, kernel, what):
-    """A kernel against its plain version on recorded band sweeps.
-    Residuals are taken in float64 on the CPU, relative to max |rhs|."""
+def backward_error(D, U, Lo, rhs, x):
+    """The worst normwise backward error of ``x`` over the chains and
+    right-hand sides (float64 tensors on the CPU)."""
+    import torch
+    from dompc_tpu_torch.solver.bbd import band_matvec
+    r = (band_matvec(D, U, Lo, x) - rhs).abs().amax((1, 2))     # (N, t)
+    rows = D.abs().sum(-1)                                     # (N, S, b)
+    rows[:, :-1] += U.abs().sum(-1)
+    rows[:, 1:] += Lo.abs().sum(-1)
+    den = rows.amax((1, 2))[:, None] * x.abs().amax((1, 2)) \
+        + rhs.abs().amax((1, 2))
+    return float((r / den.clamp_min(torch.finfo(den.dtype).tiny)).max())
+
+
+def check_recorded(recorded, kname, kernel, what, twin=None, forward=True):
+    """A kernel against its plain version ``twin`` (by default the plain
+    sweep) on recorded band sweeps, each sweep by backward error and, with
+    ``forward``, by residual and forward error.  Residuals and errors are
+    taken in float64 on the CPU, relative to max |rhs| and max |x|."""
     import torch
     from dompc_tpu_torch.solver import band_qr
     from dompc_tpu_torch.solver.bbd import band_matvec
 
-    worst = dict(res_kernel=0.0, res_twin=0.0, err_kernel=0.0, err_twin=0.0,
-                 non_finite_inputs=0)
+    twin = twin or band_qr.band_solve_qr_multi
+
+    worst = dict(be_kernel=0.0, be_twin=0.0, res_kernel=0.0, res_twin=0.0,
+                 err_kernel=0.0, err_twin=0.0, non_finite_inputs=0)
     dname = str(recorded[0][0].dtype).replace("torch.", "") if recorded \
         else "float32"
     floor = KKT_FLOOR[dname]
+    be_floor = BE_FLOOR * torch.finfo(getattr(torch, dname)).eps
     for i, args in enumerate(recorded):
         if not all(bool(torch.isfinite(a).all()) for a in args):
             # the last polish steps: a near-singular polish solve (1e10
@@ -383,14 +452,15 @@ def check_recorded(recorded, kname, kernel, what):
         x_k = kernel(*args).cpu().double()
         cpu = [a.cpu() for a in args]
         a64 = [a.double() for a in cpu]
-        x_64 = band_qr.band_solve_qr_multi(*a64)
+        x_64 = twin(*a64)
         if dname == "float64":
             x_t = torch.linalg.solve(
                 dense_chain(*a64[:3]),
                 a64[3].reshape(a64[3].shape[0], -1, a64[3].shape[-1])
             ).reshape(x_64.shape)
         else:
-            x_t = band_qr.band_solve_qr_multi(*cpu).double()
+            x_t = twin(*cpu).double()
+        x_same = x_64 if dname == "float64" else x_t  # the twin in dname
         r_max = float(a64[3].abs().max())
         x_max = float(x_64.abs().max())
 
@@ -398,21 +468,26 @@ def check_recorded(recorded, kname, kernel, what):
             return float((band_matvec(*a64[:3], x) - a64[3]).abs().max()) \
                 / r_max
 
-        row = dict(res_kernel=res(x_k),
-                   res_twin=res(x_64 if dname == "float64" else x_t),
+        row = dict(be_kernel=backward_error(*a64, x_k),
+                   be_twin=backward_error(*a64, x_same),
+                   res_kernel=res(x_k), res_twin=res(x_same),
                    err_kernel=float((x_k - x_64).abs().max()) / x_max,
                    err_twin=float((x_t - x_64).abs().max()) / x_max)
         for key, val in row.items():
             worst[key] = max(worst[key], val)
         check(np.isfinite(list(row.values())).all()
-              and row["res_kernel"] <= KKT_FACTOR * row["res_twin"] + floor
-              and row["err_kernel"] <= KKT_FACTOR * row["err_twin"] + floor,
+              and row["be_kernel"] <= KKT_FACTOR * row["be_twin"] + be_floor
+              and (not forward or (
+                  row["res_kernel"] <= KKT_FACTOR * row["res_twin"] + floor
+                  and row["err_kernel"] <= KKT_FACTOR * row["err_twin"]
+                  + floor)),
               f"{kname} on recorded KKT sweep {i} of {what}: {row} (bound: "
-              f"{KKT_FACTOR:g} x plain + {floor:g})")
-    worst["sweeps"] = len(recorded)
-    worst["chains"] = int(recorded[0][0].shape[0]) if recorded else 0
-    worst["recorded_from"] = what
-    worst["dtype"] = dname
+              f"{KKT_FACTOR:g} x plain + {be_floor:g} in backward error"
+              + (f", + {floor:g} in residual and error)" if forward else ")"))
+    worst.update(be_bound=f"{KKT_FACTOR:g} x plain + {be_floor:g}",
+                 forward_checked=forward, sweeps=len(recorded),
+                 chains=int(recorded[0][0].shape[0]) if recorded else 0,
+                 recorded_from=what, dtype=dname)
     check(worst["sweeps"] > worst["non_finite_inputs"],
           f"no recorded band sweep of {what} had finite inputs")
     print(f"{kname}_kkt " + json.dumps(worst), flush=True)
@@ -465,7 +540,7 @@ def main_path_f64():
     from dompc_tpu_torch.interop import load_mpc_state
 
     check(os.environ.get("DOMPC_TPU_X64") == "1", "child needs X64")
-    run = drive_main_path(5, f32_settings=False, record=True)
+    run = drive_main_path(MAIN_STEPS, f32_settings=False, record=True)
     run["kkt"] = check_recorded(run.pop("recorded"), "band_qr",
                                 band_qr.band_solve, "float64 make_step 0")
     os.environ["DOMPC_TPU_PLATFORM"] = "cpu"
@@ -694,6 +769,8 @@ def rti_phase(start):
 # --------------------------------------------------------------------------
 
 CL_STEPS = 8           # plant steps per closed loop (tests/test_rti.py:130)
+CL_SMOKE_STEPS = 3     # phase 8's plant steps per loop (cut from 8 for time)
+EKF_CSTR_STEPS = 1     # continuous CSTR EKF steps of phase 9 (cut from 3)
 U_PLANT = np.array([[18.0, -4500.0], [25.0, -3000.0], [12.0, -6000.0]])
 
 
@@ -816,7 +893,8 @@ def tank_tvp_fun(tmpl):
 
 def ekf_run(n_steps=20, seed=42):
     """The triple-tank Simulator + EKF loop of tests/test_ekf_lqr.py:18-51
-    (seeded measurement noise), then 3 EKF steps on the continuous CSTR
+    (seeded measurement noise), then EKF_CSTR_STEPS EKF steps on the
+    continuous CSTR
     (covariance through the adaptive integrator), on the device of the
     environment."""
     import dompc_tpu_torch as dm
@@ -865,7 +943,7 @@ def ekf_run(n_steps=20, seed=42):
     Qc = np.diag([1e-4, 1e-4, 1e-2, 1e-2])
     Rc = np.diag([1e-3, 1e-3, 1e-1, 1e-1])
     c_ms, c_steps = [], []
-    for k in range(3):
+    for k in range(EKF_CSTR_STEPS):
         y = np.array([0.85, 0.52, 134.0, 129.8]) * (1.0 + 1e-3 * k)
         t0 = time.perf_counter()
         cekf.make_step(y_next=y, u_next=U_PLANT[0].reshape(-1, 1), Q_k=Qc,
@@ -914,7 +992,7 @@ def closed_loop_f64():
                        "(bound 1e-9)")
     # 8b: full against RTI
     t0 = time.perf_counter()
-    res = closed_loop_pair()
+    res = closed_loop_pair(CL_SMOKE_STEPS)
     res["wall_s"] = time.perf_counter() - t0
     for name in ("full", "rti"):
         loop = res[name]
@@ -963,8 +1041,8 @@ def closed_loop_f64():
 # phase 10: moving-horizon estimation, float64 (child process)
 # --------------------------------------------------------------------------
 
-MHE_STEPS = 5          # estimator steps of 10a
-LOOP_STEPS = 5         # coupled-loop steps of 10b (the test's 5)
+MHE_STEPS = 1          # estimator steps of 10a (cut from 5 for time)
+LOOP_STEPS = 1         # coupled-loop steps of 10b (the test's 5, cut)
 
 
 def _sync(device):
@@ -1197,22 +1275,480 @@ def mhe_f64():
     print("MHE_RESULT " + json.dumps(rec), flush=True)
 
 
+# --------------------------------------------------------------------------
+# phases 11 and 12: the double inverted pendulum and the LQR (child process)
+# --------------------------------------------------------------------------
+
+DIP_LOOP_STEPS = 3     # float64 closed-loop steps (tests/test_dip.py:155)
+DIP_F32_WARM = 2       # float32 warm steps after the cold solve
+DIP_CHECKED = 24       # recorded SPIKE solves held to the plain SPIKE
+LQR_STEPS = 5          # batch-reactor LQR loop steps (phase 12)
+
+
+@contextlib.contextmanager
+def spike_watch(record=False):
+    """Count, per KKT solve of the MPC (``bbd_solve`` as the condensed KKT
+    calls it), the band_qr launches, with what the partition of
+    ``bbd._spike_parts`` predicts for it: 2 a sweep when partitioned (the
+    segments, then the reduced system), 1 when not, times 1 + n_refine.
+    While ``record`` is on, keep a copy of every SPIKE solve's chains."""
+    from dompc_tpu_torch.controller import _mpc
+    from dompc_tpu_torch.solver import band_qr, batchqr, bbd
+    real_bbd, real_spike = _mpc.bbd_solve, batchqr.band_solve_spike_impl
+    out = dict(solves=[], recorded=[], record=record)
+
+    def bbd_solve(D, U, Lo, Bord, Root, *rest, n_refine=0,
+                  backend="pallas"):
+        n_parts, n_ref = bbd._spike_parts(Bord.shape[-3], D.dtype, backend,
+                                          n_refine)
+        n0 = band_qr.band_solve.launches
+        res = real_bbd(D, U, Lo, Bord, Root, *rest, n_refine=n_refine,
+                       backend=backend)
+        out["solves"].append(dict(
+            launches=band_qr.band_solve.launches - n0, n_parts=n_parts,
+            n_refine=n_ref, want=(2 if n_parts else 1) * (1 + n_ref),
+            chain=list(D.shape[-4:-1]) + [Bord.shape[-1]]))
+        return res
+
+    def spike(D, U, Lo, rhs, n_parts, sweep=None):
+        if out["record"]:
+            out["recorded"].append([x.clone() for x in (D, U, Lo, rhs)]
+                                   + [n_parts])
+        return real_spike(D, U, Lo, rhs, n_parts, sweep)
+
+    _mpc.bbd_solve, batchqr.band_solve_spike_impl = bbd_solve, spike
+    try:
+        yield out
+    finally:
+        _mpc.bbd_solve, batchqr.band_solve_spike_impl = real_bbd, real_spike
+
+
+def check_spike_counts(watch, what):
+    """Every KKT solve was partitioned and launched band_qr 2 x (1 +
+    n_refine) times."""
+    solves = watch["solves"]
+    check(solves, f"{what}: no KKT solve went through bbd_solve")
+    bad = [v for v in solves if v["launches"] != v["want"]
+           or v["n_parts"] < 2]
+    check(not bad, f"{what}: KKT solves off the SPIKE count (2 x (1 + "
+                   f"n_refine) launches, partitioned): {bad[:3]}")
+    return dict(kkt_solves=len(solves), chain=solves[0]["chain"],
+                n_parts=solves[0]["n_parts"], n_refine=solves[0]["n_refine"],
+                launches_per_kkt_solve=solves[0]["want"],
+                launches=sum(v["launches"] for v in solves))
+
+
+def dip_cold_state(model, mpc, sim=None):
+    """tests/test_dip.py:146-157: theta = 0.9 pi, pos = 0."""
+    from dompc_tpu_torch.interop import mpc_state_arrays
+    x0 = np.zeros(model.n_x)
+    x0[1:3] = 0.9 * np.pi
+    if sim is not None:
+        sim.x0["theta"] = 0.9 * np.pi
+        sim.x0["pos"] = 0
+        x0 = sim.x0.data.copy()
+        sim.init_algebraic_variables()
+    mpc.x0 = x0
+    mpc.set_initial_guess()
+    return x0, mpc_state_arrays(mpc)
+
+
+def dip_step_record(mpc, k, ms):
+    st = mpc.solver_stats
+    rec = dict(step=k, ms=ms, iters=st["iter_count"], success=st["success"],
+               kkt_err=st["kkt_err"])
+    print(f"  DIP step {k}: {ms:.1f} ms, {st['iter_count']} iterations, "
+          f"success={st['success']}, kkt_err={st['kkt_err']:.2e}",
+          flush=True)
+    check(st["success"], f"DIP make_step {k} ({mpc._dtype}) did not "
+                         f"certify: {rec}")
+    return rec
+
+
+def dip_wait_turn(name):
+    """Phase 11's two DIP children solve their cold steps side by side;
+    all that follows runs alone.  Mark this child's cold solve done and
+    wait for the script's go (a line on stdin); a child run on its own
+    (no DIP_SYNC_DIR) goes on at once."""
+    sync = os.environ.get("DIP_SYNC_DIR")
+    if sync:
+        open(os.path.join(sync, name + ".cold"), "w").close()
+        sys.stdin.readline()
+
+
+def dip_f64_run():
+    """Phase 11, float64: dip_model -> dip_mpc (N=100) -> dip_simulator on
+    the card, the cold solve and DIP_LOOP_STEPS closed-loop steps with
+    StateFeedback (tests/test_dip.py:146-170); step 0's SPIKE solves are
+    recorded."""
+    import dompc_tpu_torch as dm
+    from dompc_tpu_torch.solver import band_qr
+    from dompc_tpu_torch.systems import dip_model, dip_mpc, dip_simulator
+    t0 = time.perf_counter()
+    model = dip_model()
+    mpc = dip_mpc(model)
+    sim = dip_simulator(model)
+    est = dm.estimator.StateFeedback(model)
+    setup_s = time.perf_counter() - t0
+    check(mpc._device.type == "cuda", f"DIP MPC on {mpc._device}")
+    x0, first = dip_cold_state(model, mpc, sim)
+    steps, sim_ms, us = [], [], []
+    band_qr.band_solve.launches = 0
+    band_qr.band_solve_tiled.launches = 0
+    with spike_watch(record=True) as watch:
+        for k in range(DIP_LOOP_STEPS):
+            t1 = time.perf_counter()
+            u0 = mpc.make_step(x0)
+            _sync(mpc._device)
+            steps.append(dip_step_record(
+                mpc, k, (time.perf_counter() - t1) * 1e3))
+            watch["record"] = False
+            if k == 0:
+                w_first = np.array(mpc.opt_x_num, dtype=float)
+                dip_wait_turn("f64")
+            us.append(np.asarray(u0).reshape(-1).tolist())
+            t1 = time.perf_counter()
+            y = sim.make_step(u0)
+            sim_ms.append((time.perf_counter() - t1) * 1e3)
+            x0 = est.make_step(y)
+    launches = band_qr.band_solve.launches
+    tiled = band_qr.band_solve_tiled.launches
+    counts = check_spike_counts(watch, "DIP float64")
+    check(launches == counts["launches"] and launches > 0 and tiled == 0,
+          f"DIP float64: {launches} band_qr launches, {counts['launches']} "
+          f"in KKT solves, tiled {tiled}")
+    return dict(setup_s=setup_s, steps=steps, sim_ms=sim_ms, u0=us,
+                counts=counts, tiled_launches=tiled, first_state=first,
+                w_first=w_first, recorded=watch["recorded"])
+
+
+def dip_f32_run():
+    """Phase 11, float32 (solver_tol 1e-4, as phase 4): the cold solve
+    and DIP_F32_WARM warm steps, the next x0 being the MPC's own
+    prediction."""
+    from dompc_tpu_torch.solver import band_qr
+    from dompc_tpu_torch.systems import dip_model, dip_mpc
+    model = dip_model()
+    mpc = dip_mpc(model)
+    mpc.settings.solver_tol = 1e-4
+    mpc._create_solver()
+    check(mpc._device.type == "cuda" and str(mpc._dtype) == "torch.float32",
+          f"DIP float32 MPC on {mpc._device} in {mpc._dtype}")
+    x0, _ = dip_cold_state(model, mpc)
+    L = mpc.layout
+    steps = []
+    band_qr.band_solve.launches = 0
+    band_qr.band_solve_tiled.launches = 0
+    with spike_watch(record=True) as watch:
+        for k in range(1 + DIP_F32_WARM):
+            t1 = time.perf_counter()
+            mpc.make_step(x0)
+            _sync(mpc._device)
+            steps.append(dip_step_record(
+                mpc, k, (time.perf_counter() - t1) * 1e3))
+            watch["record"] = False
+            if k == 0:
+                dip_wait_turn("f32")
+            x0 = np.asarray(mpc.opt_x_num[L.sl(("x_node", 1, 0))]) \
+                * mpc._x_scaling.data
+    launches = band_qr.band_solve.launches
+    tiled = band_qr.band_solve_tiled.launches
+    counts = check_spike_counts(watch, "DIP float32")
+    check(launches == counts["launches"] and tiled == 0,
+          f"DIP float32: {launches} band_qr launches, {counts['launches']} "
+          f"in KKT solves, tiled {tiled}")
+    return dict(steps=steps, counts=counts, tiled_launches=tiled,
+                recorded=watch["recorded"])
+
+
+def spike_sweeps_check(recorded, what):
+    """Recorded SPIKE solves (DIP_CHECKED of them, evenly spread) on a CPU
+    copy, each held as :func:`check_recorded` says:
+
+    * the kernel-SPIKE against the plain SPIKE, and the kernel's own
+      launches inside it (the segment sweeps and the reduced systems)
+      against the plain sweep on the same inputs, by backward error;
+    * the same chains through the unpartitioned kernel (DOMPC_TPU_SPIKE=0)
+      against the plain sweep, by backward error, residual and error;
+
+    and each route's device time per solve."""
+    import torch
+    from dompc_tpu_torch.solver import band_qr, batchqr
+    check(recorded, f"{what}: no SPIKE solve recorded")
+    idx = np.unique(np.linspace(0, len(recorded) - 1,
+                                min(DIP_CHECKED, len(recorded))).astype(int))
+    sample = [recorded[i] for i in idx]
+    P = sample[0][4]
+    chains = [a[:4] for a in sample]
+
+    def spike(*a):
+        return batchqr.band_solve_spike_impl(*a, P)
+    launched = []
+
+    def keep(*a):
+        launched.append([x.clone() for x in a])
+        return band_qr.band_solve(*a)
+    for a in chains:
+        batchqr.band_solve_spike_impl(*a, P, sweep=keep)
+    out = dict(recorded=len(recorded), n_parts=P)
+    out["kernel_in_spike"] = check_recorded(launched, "band_qr_in_spike",
+                                            band_qr.band_solve, what,
+                                            forward=False)
+    out["spike"] = check_recorded(chains, "band_qr_spike", spike, what,
+                                  twin=spike, forward=False)
+    out["unpartitioned"] = check_recorded(chains, "band_qr_whole",
+                                          band_qr.band_solve, what)
+    finite = [a for a in chains
+              if all(bool(torch.isfinite(x).all()) for x in a)]
+    for key, fn in (("spike_ms", spike),
+                    ("unpartitioned_ms", band_qr.band_solve)):
+        out[key] = cuda_ms(lambda: [fn(*a) for a in finite], 3) / len(finite)
+    print("dip_spike_sweeps " + json.dumps(out), flush=True)
+    return out
+
+
+def lqr_run():
+    """Phase 12: the batch reactor's dae2odeconversion -> linearize ->
+    discretize -> LQR flow (tests/test_more_examples.py:128-163) against
+    its continuous linear model in ``Simulator``, LQR_STEPS steps, on the
+    device of the environment."""
+    import dompc_tpu_torch as dm
+    m = dm.model.Model("continuous")
+    k1, k2, k3 = 25, 1, 1
+    Ca = m.set_variable("_x", "Ca")
+    Cb = m.set_variable("_x", "Cb")
+    Ad = m.set_variable("_x", "Ad")
+    Cain = m.set_variable("_u", "Cain")
+    Cc = m.set_variable("_z", "Cc")
+    m.set_rhs("Ca", -k1 * Ca + Cain)
+    m.set_rhs("Cb", k1 * Ca - k2 * Cb + k3 * Cc)
+    m.set_rhs("Ad", Cain)
+    m.set_alg("exp", 1 + Ad - Ca - Cb - Cc)
+    m.setup()
+    linear = dm.model.linearize(dm.model.dae2odeconversion(m))
+    model_dc = linear.discretize(0.5)
+    lqr = dm.controller.LQR(model_dc)
+    lqr.set_param(n_horizon=10, t_step=0.5)
+    lqr.set_objective(Q=10 * np.identity(5), R=5 * np.identity(1))
+    lqr.setup()
+    sim = dm.Simulator(linear)
+    sim.set_param(integration_tool="cvodes", t_step=0.5, substeps=8)
+    sim.setup()
+    x0 = np.array([[1.0], [0.0], [0.0], [0.0], [0.0]])
+    sim.x0 = x0
+    xss = np.array([[0.0], [2.0], [3.0], [0.0], [2.0]])
+    lqr.set_setpoint(xss=xss, uss=model_dc.get_steady_state(xss=xss))
+    lqr_ms, sim_ms = [], []
+    for _ in range(LQR_STEPS):
+        t0 = time.perf_counter()
+        u0 = lqr.make_step(x0)
+        lqr_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        x0 = sim.make_step(u0)
+        sim_ms.append((time.perf_counter() - t0) * 1e3)
+    return dict(x=sim.data._x, u=sim.data._u, K=lqr.K, lqr_ms=lqr_ms,
+                sim_ms=sim_ms, adaptive_steps=sim.adaptive_steps,
+                device=str(sim._device))
+
+
+def dip_cpu_f64():
+    """Child process (DOMPC_TPU_PLATFORM=cpu, DOMPC_TPU_X64=1): the
+    yardstick of phase 11, step 0 of the DIP with the port on the CPU."""
+    import torch
+    from dompc_tpu_torch.systems import dip_model, dip_mpc
+    torch.set_num_threads(4)
+    t0 = time.perf_counter()
+    model = dip_model()
+    mpc = dip_mpc(model)
+    check(mpc._device.type == "cpu", "reference DIP MPC is not on the CPU")
+    x0, first = dip_cold_state(model, mpc)
+    u0 = np.asarray(mpc.make_step(x0)).reshape(-1)
+    print("DIPCPU_RESULT " + json.dumps(dict(
+        u0=u0.tolist(), w=np.asarray(mpc.opt_x_num, dtype=float).tolist(),
+        iters=mpc.solver_stats["iter_count"],
+        success=bool(mpc.solver_stats["success"]),
+        s=time.perf_counter() - t0, start=state_digest(first))), flush=True)
+
+
+def dip_card_f32():
+    """Child process (float32): phase 11's float32 run on the card and the
+    check of its recorded SPIKE solves."""
+    run = dip_f32_run()
+    rec = dict(ms=[s["ms"] for s in run["steps"]],
+               iters=[s["iters"] for s in run["steps"]],
+               kkt_err=[s["kkt_err"] for s in run["steps"]],
+               tiled_launches=run["tiled_launches"], **run["counts"])
+    print("dip_f32 " + json.dumps(rec), flush=True)
+    rec["sweeps"] = spike_sweeps_check(run["recorded"], "float32 DIP step 0")
+    print("DIP32_RESULT " + json.dumps(rec), flush=True)
+
+
+def state_digest(arrays):
+    """A digest of an MPC's numeric start state (the arrays of
+    ``interop.mpc_state_arrays``)."""
+    import hashlib
+    h = hashlib.sha256()
+    for key in sorted(arrays):
+        h.update(key.encode() + np.asarray(arrays[key], dtype=float).tobytes())
+    return h.hexdigest()
+
+
+def dip_lqr_f64():
+    """Child process (DOMPC_TPU_X64=1): phase 11's float64 pass and phase
+    12; the port on the CPU is the yardstick of the LQR loop (that of the
+    DIP's step 0 runs in a process of its own, see :func:`main`)."""
+    from dompc_tpu_torch.solver import band_qr
+
+    check(os.environ.get("DOMPC_TPU_X64") == "1", "child needs X64")
+    # 11: the DIP, float64
+    run = dip_f64_run()
+    rec = dict(setup_s=run["setup_s"], ms=[s["ms"] for s in run["steps"]],
+               iters=[s["iters"] for s in run["steps"]],
+               kkt_err=[s["kkt_err"] for s in run["steps"]],
+               sim_ms=run["sim_ms"], u0=run["u0"],
+               tiled_launches=run["tiled_launches"], **run["counts"])
+    print("dip_f64 " + json.dumps(rec), flush=True)
+    rec["sweeps"] = spike_sweeps_check(run["recorded"], "float64 DIP step 0")
+    rec.update(w_first=run["w_first"].tolist(),
+               start=state_digest(run["first_state"]))
+    # 12: LQR + Simulator
+    band_qr.band_solve.launches = 0
+    band_qr.band_solve_tiled.launches = 0
+    gpu = lqr_run()
+    launches = {"band_qr": band_qr.band_solve.launches,
+                "band_sweep_tiled": band_qr.band_solve_tiled.launches}
+    cpu = on_cpu(lqr_run)
+    check(gpu["device"].startswith("cuda") and cpu["device"] == "cpu",
+          f"LQR plant devices {gpu['device']} / {cpu['device']}")
+    rel = max(_rel_max(gpu[k], cpu[k]) for k in ("x", "u", "K"))
+    lqr = dict(card_vs_cpu=rel, lqr_ms=gpu["lqr_ms"], sim_ms=gpu["sim_ms"],
+               cpu_sim_ms=cpu["sim_ms"], launches=launches, steps=LQR_STEPS)
+    print("lqr " + json.dumps(lqr), flush=True)
+    check(rel <= 1e-9, f"LQR loop on the card vs the CPU: rel {rel:.2e} "
+                       "(bound 1e-9)")
+    check(not any(launches.values()), f"LQR loop launched {launches}")
+    print("DIP_RESULT " + json.dumps(dict(f64=rec, lqr=lqr)), flush=True)
+
+
+def dip_card_vs_cpu(f64, cpu):
+    """Phase 11's yardstick: the card's float64 step 0 (u0 and the whole
+    solution) against the port's on the CPU from the same start state."""
+    check(cpu["start"] == f64.pop("start"),
+          "DIP: the CPU yardstick started from another state")
+    u_rel = _rel_max(f64["u0"][0], cpu["u0"])
+    w_rel = _rel_max(f64.pop("w_first"), cpu["w"])
+    f64.update(cpu_step0_s=cpu["s"], cpu_iters=cpu["iters"],
+               card_vs_cpu_u0=u_rel, card_vs_cpu_w=w_rel)
+    print(f"  DIP step 0 card vs CPU: u0 rel {u_rel:.2e}, solution rel "
+          f"{w_rel:.2e}; CPU {cpu['iters']} iterations in {cpu['s']:.1f} s",
+          flush=True)
+    check(cpu["success"] and u_rel <= 1e-6 and w_rel <= 1e-6,
+          f"DIP step 0 on the card vs the CPU: u0 rel {u_rel:.2e}, solution "
+          f"rel {w_rel:.2e} (bound 1e-6), CPU certified {cpu['success']}")
+
+
+def dip_phase(say, timeout=900):
+    """Phases 11 and 12 in three children: the float64 DIP with the LQR
+    loop, the float32 DIP, and the yardstick of the float64 step 0 (the
+    port on the CPU, 4 threads).  The two cold solves and the yardstick run
+    side by side; then the float64 child goes on alone (its closed-loop
+    steps, the SPIKE checks and timings, the LQR loop), then the float32
+    child (its warm steps, the SPIKE checks and timings)."""
+    import shutil
+    import tempfile
+    sync = tempfile.mkdtemp(prefix="chip_smoke_dip_")
+    flags = {"f64": "--dip-f64", "f32": "--dip-f32", "cpu": "--dip-cpu"}
+    kids = {"f64": start_child("--dip-f64", sync=sync),
+            "f32": start_child("--dip-f32", x64=False, sync=sync),
+            "cpu": start_child("--dip-cpu", platform="cpu")}
+    try:
+        deadline = time.perf_counter() + timeout
+        while not all(os.path.exists(os.path.join(sync, k + ".cold"))
+                      for k in ("f64", "f32")):
+            for k, proc in kids.items():
+                if proc.poll() is not None and k != "cpu":
+                    finish_child(proc, flags[k], 60)
+                    fail(f"{flags[k]} child ended before the other's cold "
+                         "solve was done")
+            check(time.perf_counter() < deadline,
+                  f"the DIP cold solves did not end in {timeout} s")
+            time.sleep(0.5)
+        say("both DIP cold solves done; the CPU yardstick:")
+        cpu = finish_child(kids["cpu"], flags["cpu"], timeout)
+        say("float64 goes on alone:")
+        dip = finish_child(kids["f64"], flags["f64"], timeout, go=True)
+        dip_card_vs_cpu(dip["f64"], cpu)
+        say("float32 goes on alone:")
+        dip["f32"] = finish_child(kids["f32"], flags["f32"], timeout, go=True)
+    finally:
+        for proc in kids.values():
+            stop_child(proc)
+        shutil.rmtree(sync, ignore_errors=True)
+    return dip
+
+
+CHILD_TAGS = {"--main-path-f64": "F64_RESULT ", "--closed-loop-f64":
+              "CL_RESULT ", "--mhe-f64": "MHE_RESULT ",
+              "--dip-f64": "DIP_RESULT ", "--dip-cpu": "DIPCPU_RESULT ",
+              "--dip-f32": "DIP32_RESULT "}
+
+
+def start_child(flag, x64=True, platform=None, sync=None):
+    """Start this script with ``flag`` in a child process of its own
+    process group (float64 unless ``x64`` is False; on the CPU with
+    ``platform="cpu"``; ``sync``: see :func:`dip_wait_turn`)."""
+    env = dict(os.environ)
+    for var in ("DOMPC_TPU_X64", "DOMPC_TPU_PLATFORM", "DIP_SYNC_DIR"):
+        env.pop(var, None)
+    if x64:
+        env["DOMPC_TPU_X64"] = "1"
+    if platform:
+        env["DOMPC_TPU_PLATFORM"] = platform
+    if sync:
+        env["DIP_SYNC_DIR"] = sync
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), flag],
+                            env=env, cwd=ROOT, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, process_group=0)
+
+
+def stop_child(proc):
+    """Kill a child of :func:`start_child` and the processes it started,
+    if it is still running."""
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.communicate()
+
+
+def finish_child(proc, flag, timeout, go=False):
+    """Wait for a child of :func:`start_child` (with ``go``, after giving
+    it the go of :func:`dip_wait_turn`); echo its lines, fail with its
+    errors, return its result line's JSON."""
+    try:
+        out, err = proc.communicate("go\n" if go else None, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        stop_child(proc)
+        fail(f"{flag} child did not finish in {timeout} s")
+    tag = CHILD_TAGS[flag]
+    sys.stdout.write("".join(l + "\n" for l in out.splitlines()
+                             if not l.startswith(tag)))
+    sys.stdout.flush()
+    check(proc.returncode == 0, f"{flag} child failed:\n{err[-4000:]}")
+    return json.loads(next(l for l in out.splitlines()
+                           if l.startswith(tag))[len(tag):])
+
+
 def run_child(flag, timeout):
     """Run this script with ``flag`` in a float64 child; echo its lines,
     fail with its errors, return its result line's JSON."""
-    env = dict(os.environ, DOMPC_TPU_X64="1")
-    child = subprocess.run([sys.executable, os.path.abspath(__file__), flag],
-                           env=env, cwd=ROOT, capture_output=True, text=True,
-                           timeout=timeout)
-    tag = {"--main-path-f64": "F64_RESULT ", "--closed-loop-f64":
-           "CL_RESULT ", "--mhe-f64": "MHE_RESULT "}[flag]
-    out = child.stdout
-    sys.stdout.write("".join(l + "\n" for l in out.splitlines()
-                             if not l.startswith(tag)))
-    check(child.returncode == 0, f"{flag} child failed:\n"
-                                 f"{child.stderr[-4000:]}")
-    return json.loads(next(l for l in out.splitlines()
-                           if l.startswith(tag))[len(tag):])
+    proc = start_child(flag)
+    try:
+        return finish_child(proc, flag, timeout)
+    finally:
+        stop_child(proc)
 
 
 def summarize(tag, run):
@@ -1243,11 +1779,16 @@ def main():
         os.environ.pop(var, None)
     t_start = time.perf_counter()
 
+    def say(what):
+        """A phase's heading, with the seconds since the script started."""
+        print(f"[{time.perf_counter() - t_start:.1f} s] {what}", flush=True)
+
     # 1. device
     card = card_line()
     print(f"card: {card}", flush=True)
 
     # 2. build; ptxas's report of every template instance
+    say("build:")
     ptxas = {}
     for name, (so, build_s, log) in band_qr.build().items():
         print(f"build: {name}: {so.name} in {build_s:.2f} s", flush=True)
@@ -1256,6 +1797,9 @@ def main():
             ptxas[rep["instance"]] = rep
     for inst in MHE_INSTANCES:
         print(f"  ptxas bucket 97 (MHE, b=83): {json.dumps(ptxas.get(inst))}",
+              flush=True)
+    for inst in DIP_INSTANCES:
+        print(f"  ptxas bucket 32 (DIP, b=23): {json.dumps(ptxas.get(inst))}",
               flush=True)
     if ptxas:   # empty only when build/ already held both libraries
         for inst in FLAGSHIP_INSTANCES:
@@ -1266,35 +1810,41 @@ def main():
                   f"{rep}")
 
     # 3. kernels against their plain version
+    say("kernels against their plain version:")
     rows = kernel_phase()
 
     # 4. make_step, float32 here, float64 (and phase 6) in a child process
     # afterwards (one at a time: the host times are the step's own)
-    print("make_step float32:", flush=True)
-    run32 = drive_main_path(5, f32_settings=True, record=True)
+    say("make_step float32:")
+    run32 = drive_main_path(MAIN_STEPS, f32_settings=True, record=True)
     kkt = check_recorded(run32.pop("recorded"), "band_qr",
                          band_qr.band_solve, "float32 make_step 0")
     # 5. batched serving, float32
-    print("batched serving float32, B=128:", flush=True)
+    say("batched serving float32, B=128:")
     batched = batched_phase()
     # 7. RTI serving, float32, from phase 5's default-backend solution
-    print("RTI serving float32, B=128:", flush=True)
+    say("RTI serving float32, B=128:")
     rti = rti_phase(batched.pop("rti_start"))
-    print("make_step float64 and batched float64 (subprocess):", flush=True)
+    say("make_step float64 and batched float64 (subprocess):")
     run64 = run_child("--main-path-f64", 900)
     main32, main64 = summarize("float32", run32), summarize("float64", run64)
     print("main_path " + json.dumps(main32), flush=True)
     print("main_path " + json.dumps(main64), flush=True)
     # 8 and 9. the closed loop and the EKF, float64
-    print("closed loop and EKF float64 (subprocess):", flush=True)
+    say("closed loop and EKF float64 (subprocess):")
     loop64 = run_child("--closed-loop-f64", 600)
     print("closed_loop " + json.dumps(loop64), flush=True)
     # 10. moving-horizon estimation and the coupled loop, float64
-    print("MHE and the coupled MHE + MPC loop float64 (subprocess):",
-          flush=True)
+    say("MHE and the coupled MHE + MPC loop float64 (subprocess):")
     mhe64 = run_child("--mhe-f64", 600)
     print("mhe_phase " + json.dumps(mhe64), flush=True)
-    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    # 11 and 12. the double inverted pendulum in float64 and float32, and
+    # the LQR loop
+    say("DIP (N=100) float64 and float32, their cold solves side by side "
+        "with the CPU yardstick (three subprocesses):")
+    dip = dip_phase(say)
+    print("dip_phase " + json.dumps(dip), flush=True)
+    say("done")
 
     def row(kname, case):
         return next(r for r in rows if r["kernel"] == kname
@@ -1323,6 +1873,13 @@ def main():
     by_path["band_qr"].update({
         f"coupled_loop_f64_{mod}": n for mod, n in cpl["launches"].items()})
     by_path["band_sweep_tiled"]["coupled_loop_f64"] = cpl["tiled_launches"]
+    by_path["band_qr"].update(dip_f64=dip["f64"]["launches"],
+                              dip_f32=dip["f32"]["launches"],
+                              lqr_f64=dip["lqr"]["launches"]["band_qr"])
+    by_path["band_sweep_tiled"].update(
+        dip_f64=dip["f64"]["tiled_launches"],
+        dip_f32=dip["f32"]["tiled_launches"],
+        lqr_f64=dip["lqr"]["launches"]["band_sweep_tiled"])
     kernels = []
     for kname, src, line, main_path in (
             ("band_qr", "dompc_tpu_torch/csrc/band_qr.cu",
@@ -1347,13 +1904,24 @@ def main():
                     "bound_by", "max_abs_err")}
                 for r in rows if r["kernel"] == kname
                 and r["case"] == "mhe_rotating"},
+            # the DIP's chain and its SPIKE solve's two sweeps, row bucket 32
+            "dip": {
+                f"{r['case']}_{r['dtype']}": {k: r[k] for k in (
+                    "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "max_abs_err")}
+                for r in rows if r["kernel"] == kname
+                and r["case"].startswith("dip_")},
             "launches_by_path": by_path[kname],
             "ptxas_flagship": [ptxas.get(i) for i in FLAGSHIP_INSTANCES
                                if i.startswith(kname + "<")],
             "ptxas_bucket97": [ptxas.get(i) for i in MHE_INSTANCES
                                if i.startswith(kname + "<")],
+            "ptxas_bucket32": [ptxas.get(i) for i in DIP_INSTANCES
+                               if i.startswith(kname + "<")],
             "kkt_sweeps": [kkt, run64["kkt"], rti["kkt"],
-                           mhe["tridiag"]["kkt"]]
+                           mhe["tridiag"]["kkt"],
+                           dip["f64"]["sweeps"]["spike"],
+                           dip["f32"]["sweeps"]["spike"]]
             if kname == "band_qr" else [batched["kkt"]]})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1372,5 +1940,14 @@ if __name__ == "__main__":
     elif sys.argv[1:] == ["--mhe-f64"]:
         sys.path.insert(0, ROOT)
         mhe_f64()
+    elif sys.argv[1:] == ["--dip-f64"]:
+        sys.path.insert(0, ROOT)
+        dip_lqr_f64()
+    elif sys.argv[1:] == ["--dip-cpu"]:
+        sys.path.insert(0, ROOT)
+        dip_cpu_f64()
+    elif sys.argv[1:] == ["--dip-f32"]:
+        sys.path.insert(0, ROOT)
+        dip_card_f32()
     else:
         main()

@@ -1,5 +1,7 @@
-"""Controllers (PyTorch port): the nonlinear MPC and its settings."""
+"""Controllers (PyTorch port): the nonlinear MPC, the LQR and their
+settings."""
 from ._mpc import MPC
 from ._controllersettings import MPCSettings, ControllerSettings, LQRSettings
+from ._lqr import LQR
 
-__all__ = ["MPC", "MPCSettings", "ControllerSettings", "LQRSettings"]
+__all__ = ["MPC", "LQR", "MPCSettings", "ControllerSettings", "LQRSettings"]

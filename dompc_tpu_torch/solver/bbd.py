@@ -28,7 +28,7 @@ import warnings
 import numpy as np
 import torch
 
-from . import band_qr
+from . import band_qr, batchqr
 
 ROOT = -1       # chain id of root-assigned entities
 PARAM = -2      # chain id of parameter/dummy columns (dropped)
@@ -601,8 +601,8 @@ def bbd_matvec(D, U, Lo, Bord, Root, x_c, x_r):
     return y, y_r
 
 
-SPIKE_S_MIN = 48      # chains this long are partitioned (SPIKE) in the JAX
-                      # package (bbd.py:807-853); not ported yet
+SPIKE_S_MIN = 48      # chains this long are partitioned (SPIKE) on the card,
+                      # as in the JAX package (bbd.py:807-853)
 BAND_BACKENDS = ("", "pallas", "pallas_tiled")   # values with a CUDA kernel
 
 
@@ -659,7 +659,11 @@ def bbd_solve(D, U, Lo, Bord, Root, rhs_c, rhs_r, n_refine=0,
     solved.  One multi-RHS band sweep over all B*C chains computes
     A_c^{-1}[B_c, r_c] (``backend`` from :func:`band_backend`: the CUDA
     kernel for CUDA tensors, the plain sweep for CPU tensors), as the JAX
-    package's custom-vmap rule flattens the batch into the chain axis; the
+    package's custom-vmap rule flattens the batch into the chain axis.
+    On the card, chains of S >= ``SPIKE_S_MIN`` stages are cut into the
+    partition of :func:`_spike_parts` and solved by
+    :func:`batchqr.band_solve_spike_impl` (two kernel launches a solve);
+    on the CPU they take the plain sweep whole, as JAX's does.  The
     roots are then eliminated by batched small dense Schur-complement
     solves.  ``n_refine`` passes of iterative refinement re-run the sweep
     on the residual.
@@ -671,13 +675,16 @@ def bbd_solve(D, U, Lo, Bord, Root, rhs_c, rhs_r, n_refine=0,
         return x_c[0], x_r[0]
     B, C, S, b, R = Bord.shape
     n_parts, n_refine = _spike_parts(S, D.dtype, backend, n_refine)
-    if n_parts and backend != "pallas_tiled":
+    if backend == "pallas_tiled":
         # JAX takes the tiled kernel before SPIKE (bbd.py:868-873)
-        raise NotImplementedError(
-            f"chains of S={S} >= {SPIKE_S_MIN} stages take the partitioned "
-            "SPIKE sweep, which is not ported yet")
-    sweep = band_qr.band_solve_tiled if backend == "pallas_tiled" \
-        else band_qr.band_solve
+        sweep = band_qr.band_solve_tiled
+    elif n_parts and D.device.type != "cpu":
+        def sweep(*chains):
+            return batchqr.band_solve_spike_impl(*chains, n_parts)
+    else:
+        # on the CPU JAX's "scan" choice sweeps the whole chain, whatever
+        # the partition (bbd.py:884-885); only its n_refine bump applies
+        sweep = band_qr.band_solve
     D, U, Lo = (a.reshape((B * C,) + a.shape[2:]).contiguous()
                 for a in (D, U, Lo))
 

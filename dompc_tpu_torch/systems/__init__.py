@@ -1,13 +1,18 @@
 """Benchmark systems (PyTorch port): the flagship robust multi-stage CSTR
 NMPC, built through the same public API as the JAX package's
 ``__graft_entry__._build_cstr_mpc``, and copies of the JAX package's
-systems: oscillating masses, the CSTR model and simulator, the triple
-tank, and the rotating masses of the coupled MHE + MPC loop."""
+systems: oscillating masses, the CSTR model, MPC and simulator, the
+batch reactor, Lotka-Volterra, the triple tank, the rotating masses of the
+coupled MHE + MPC loop, and the double inverted pendulum (a DAE)."""
 import numpy as np
 
 from ._classic import (oscillating_masses_model,  # noqa: F401
-                       oscillating_masses_mpc, cstr_model, cstr_simulator)
+                       oscillating_masses_mpc, cstr_model, cstr_mpc,
+                       cstr_simulator, batch_reactor_model,
+                       batch_reactor_mpc, lotka_volterra_model)
 from ._triple_tank import triple_tank_model  # noqa: F401
+from ._dip import (dip_model, dip_mpc, dip_simulator,  # noqa: F401
+                   DIP_OBSTACLES)
 from ._rotating_masses import (rotating_masses_model,  # noqa: F401
                                rotating_masses_mpc,
                                rotating_masses_simulator,

@@ -22,6 +22,16 @@ from dompc_tpu_torch.solver import band_qr
 from dompc_tpu_torch.solver.bbd import bbd_solve, bbd_matvec, band_matvec
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    # one intra-op thread: test workers running side by side would
+    # otherwise each spin a pool over all the cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _case(N, S, b, t, seed):
     """Inputs of tests/test_pallas_band.py:_case, as numpy."""
     rng = np.random.default_rng(seed)
@@ -153,9 +163,15 @@ def test_scatter_sum_cols_matches_index_add():
 
 
 def test_bbd_solve_refuses_spike_length_chains():
+    """Chains of S >= 48 stages were refused on the CPU before SPIKE was
+    ported; now the CPU sweeps them whole, as JAX's "scan" choice does
+    (tests/test_torch_spike.py holds them against JAX at S=50)."""
     arrays = _bbd_case(1, 48, 2, 1, seed=1)
-    with pytest.raises(NotImplementedError):
-        bbd_solve(*_torch(arrays, torch.float64))
+    targs = _torch(arrays, torch.float64)
+    xc, xr = bbd_solve(*targs)
+    y_c, y_r = bbd_matvec(*targs[:5], xc, xr)
+    assert float((y_c - targs[5]).abs().max()) < 1e-12
+    assert float((y_r - targs[6]).abs().max()) < 1e-12
 
 
 @pytest.mark.parametrize("shape", [(3, 5, 4, 2), (2, 1, 3, 1), (5, 13, 7, 3),
@@ -250,7 +266,10 @@ def test_qr_plan_flagship(dtype, smem):
                                               1, 2),
     (97, 1, torch.float32, 97, 320, 1, 1),     # the widest float32 b
     (69, 1, torch.float64, 97, 224, 1, 1),     # the widest float64 b
-    (18, 200, torch.float64, 32, 160, 2, 2)])  # split to fit shared memory
+    (18, 200, torch.float64, 32, 160, 2, 2),   # split to fit shared memory
+    (23, 47, torch.float32, 32, 128, 1, 2),    # the DIP's SPIKE segments:
+    (23, 47, torch.float64, 32, 128, 1, 2),    # 2b + t columns, one chunk
+    (23, 1, torch.float64, 32, 96, 1, 2)])     # its chain and reduced system
 def test_qr_plan_buckets_chunks_and_widest(b, t, dtype, rows, width,
                                             chunks, buffers):
     plan = band_qr.qr_plan(b, t, dtype)
@@ -308,8 +327,9 @@ def test_bbd_solve_tiled_takes_long_chains_f32(monkeypatch):
     """S >= 48 in float32: the tiled backend solves (JAX takes it before
     the SPIKE partition, bbd.py:868-873), with the partition heuristic's
     side effect of two refinement passes (bbd.py:842-846); the default
-    backend still refuses, SPIKE being unported, unless the float32
-    heuristic is switched off (DOMPC_TPU_SPIKE_F32_REFINE=0)."""
+    backend on the CPU sweeps the chain whole with the same two passes,
+    and with the float32 heuristic switched off
+    (DOMPC_TPU_SPIKE_F32_REFINE=0) without them."""
     monkeypatch.delenv("DOMPC_TPU_SPIKE", raising=False)
     monkeypatch.delenv("DOMPC_TPU_SPIKE_F32_REFINE", raising=False)
     arrays = _bbd_case(2, 50, 3, 2, seed=7)
@@ -325,8 +345,8 @@ def test_bbd_solve_tiled_takes_long_chains_f32(monkeypatch):
     assert len(calls) == 3                 # one sweep + 2 refinement passes
     y_c, y_r = bbd_matvec(*targs[:5], xc, xr)
     assert float((y_c - targs[5]).abs().max()) < 1e-4
-    with pytest.raises(NotImplementedError):
-        bbd_solve(*targs)
+    xc2, _ = bbd_solve(*targs)
+    assert torch.equal(xc2, xc)
     monkeypatch.setenv("DOMPC_TPU_SPIKE_F32_REFINE", "0")
     xc0, _ = bbd_solve(*targs)
     assert _rel(xc0.numpy(), xc.numpy()) < 1e-4

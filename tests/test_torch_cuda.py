@@ -190,3 +190,68 @@ def test_tiled_kernel_rejects_float64_and_non_contiguous():
     with pytest.raises(ValueError):
         band_qr.band_solve_tiled(D, U, Lo, rhs.transpose(2, 3).contiguous()
                                  .transpose(2, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("shape,P", [((1, 101, 23, 1), 13),
+                                     ((1, 101, 23, 47), 13),
+                                     ((2, 50, 4, 3), 6)])
+def test_kernel_spike_matches_plain_spike_on_card(dtype, shape, P):
+    """SPIKE with the kernel as its sweep (two launches: the N*P segments,
+    then the reduced separator system) against the plain SPIKE on a CPU
+    copy, at the DIP's chain (1, 101, 23, P=13: segments (13, 7, 23, 2b+t),
+    reduced (1, 12, 23, t)); the bounds of
+    test_kernel_matches_twin_on_card."""
+    from dompc_tpu_torch.solver import batchqr
+    _needs_card()
+    dt = getattr(torch, dtype)
+    D, U, Lo, rhs = _case(*shape, seed=sum(shape), dtype=dt)
+    before = band_qr.band_solve.launches
+    x = batchqr.band_solve_spike_impl(D, U, Lo, rhs, P)
+    torch.cuda.synchronize()
+    assert band_qr.band_solve.launches == before + 2
+    ref = batchqr.band_solve_spike_impl(*[a.cpu() for a in (D, U, Lo, rhs)],
+                                        P)
+    tol = 1e-4 if dt == torch.float32 else 1e-12
+    res = (band_matvec(D, U, Lo, x) - rhs).abs().max() / rhs.abs().max()
+    assert float(res) < tol
+    assert float((x.cpu() - ref).abs().max() / ref.abs().max()) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_bbd_solve_long_chain_takes_spike_on_card(monkeypatch, dtype):
+    """On the card a chain of S=101 is partitioned: 2 launches a sweep,
+    times 1 + n_refine (float32: the 2 passes of the partition heuristic);
+    DOMPC_TPU_SPIKE=0 sweeps it whole, one launch a sweep."""
+    from dompc_tpu_torch.solver.bbd import bbd_solve, bbd_matvec
+    _needs_card()
+    for var in ("DOMPC_TPU_SPIKE", "DOMPC_TPU_SPIKE_F32_REFINE",
+                "DOMPC_TPU_BAND_BACKEND"):
+        monkeypatch.delenv(var, raising=False)
+    dt = getattr(torch, dtype)
+    D, U, Lo, rhs = _case(1, 101, 23, 1, seed=7, dtype=dt)
+    rng = np.random.default_rng(8)
+    Bord = torch.as_tensor(0.3 * rng.standard_normal((1, 101, 23, 2)),
+                           dtype=dt, device="cuda")
+    Root = torch.as_tensor(rng.standard_normal((2, 2)) + 10 * np.eye(2),
+                           dtype=dt, device="cuda")
+    rhs_c, rhs_r = rhs[..., 0], torch.ones(2, dtype=dt, device="cuda")
+    n_refine = 1 if dtype == "float64" else 0
+    passes = {"float64": 2, "float32": 3}[dtype]
+    sols = []
+    for spike, per_pass in (("", 2), ("0", 1)):
+        monkeypatch.setenv("DOMPC_TPU_SPIKE", spike)
+        before = band_qr.band_solve.launches
+        xc, xr = bbd_solve(D, U, Lo, Bord, Root, rhs_c, rhs_r,
+                           n_refine=n_refine)
+        torch.cuda.synchronize()
+        want = per_pass * (passes if spike == "" else 1 + n_refine)
+        assert band_qr.band_solve.launches - before == want
+        y_c, y_r = bbd_matvec(D, U, Lo, Bord, Root, xc, xr)
+        tol = 1e-4 if dt == torch.float32 else 1e-12
+        assert float((y_c - rhs_c).abs().max()) < tol
+        sols.append(xc)
+    assert float((sols[0] - sols[1]).abs().max()) < (
+        1e-4 if dt == torch.float32 else 1e-12)

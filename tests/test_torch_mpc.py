@@ -34,10 +34,15 @@ from dompc_tpu_torch.solver.ipm import (make_ipm_solver,  # noqa: E402
 
 @pytest.fixture(scope="module", autouse=True)
 def _cpu_port():
+    # one intra-op thread: test workers running side by side would
+    # otherwise each spin a pool over all the cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("DOMPC_TPU_PLATFORM", "cpu")
         mp.setenv("DOMPC_TPU_X64", "1")
         yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
