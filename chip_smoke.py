@@ -16,8 +16,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    flagship's width at S=101, the rotating-masses MHE's chain (1 chain,
    S=11, b=83, t=2), the double inverted pendulum's chain (1, 101, 23, 1)
    and the two sweeps of its SPIKE solve (13 segments (13, 7, 23, 47),
-   the reduced system (1, 12, 23, 1)), and 1e22 diagonal entries in
-   float32; relative
+   the reduced system (1, 12, 23, 1)), the chains of phases 13-14
+   (ZOO_SHAPES: row buckets 8, 13, 16 and 32) and 1e22 diagonal entries
+   in float32; relative
    error against the plain version, operator residual, the kernel's
    device time (a loop of launches into buffers allocated beforehand,
    queued while the card sleeps, so the host is ahead:
@@ -25,7 +26,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (device time over S*b), and the plain version's and
    torch.linalg.solve's (dense yardstick) times;
 4. make_step: the flagship robust CSTR NMPC (N=20, 9 scenarios) through
-   Model -> MPC.setup() -> set_initial_guess() -> 3 make_step calls (a
+   Model -> MPC.setup() -> set_initial_guess() -> 2 make_step calls (a
    batch of one in the solver) on the card, in float32 (solver_tol 1e-4,
    60 iterations) and in float64 (in a subprocess with DOMPC_TPU_X64=1);
    the float64 pass also solves the first step with the port on the CPU
@@ -73,10 +74,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    follows them one child at a time): dip_model ->
    dip_mpc (N=100, Radau degree 3, one chain of S=101 stages, b=23) ->
    dip_simulator from theta = 0.9 pi (tests/test_dip.py:146-170).  In
-   float64 the cold solve and 3 closed-loop steps with StateFeedback,
+   float64 the cold solve and 1 closed-loop step with StateFeedback,
    step 0 held against the port on the CPU (u0 and the whole solution;
    that yardstick runs in a third subprocess, beside the cold solves);
-   in float32 (solver_tol 1e-4) the cold solve and 2 warm steps.  Every
+   in float32 (solver_tol 1e-4) the cold solve and 1 warm step.  Every
    step certifies; every KKT solve takes the SPIKE partition (13
    segments) and launches band_qr 2 x (1 + n_refine) times, and never
    the tiled kernel; step 0's SPIKE solves are held, kernel-SPIKE against
@@ -85,12 +86,41 @@ Phases, each fatal on failure (non-zero exit, no result line):
 12. the LQR, float64 (the float64 DIP's subprocess): the batch reactor's
    dae2odeconversion -> linearize -> discretize -> LQR loop against its
    linear model in Simulator (tests/test_more_examples.py:128-163, 5
-   steps), on the card against the port on the CPU.
+   steps), on the card against the port on the CPU;
+13. mixed-integer MPC (batched branch-and-bound): (a) float64 (a
+   subprocess), the scalar discrete MINLP of tests/test_minlp_bnb.py (N=3,
+   a fractional relaxation), 4 closed-loop steps with the Simulator and one
+   "round" step: nodes at step 0, the incumbent equal to the brute-force
+   optimum, bnb no worse than round, integral inputs with kkt_err < 1e-6,
+   and the same nodes and incumbents as the port on the CPU; then
+   Lotka-Volterra's integer MPC at full width (N=25, the condensed KKT for
+   the relaxation: row bucket 8) for 2 closed-loop steps, u and x against
+   the port on the CPU to 1e-10, the first frontier expansion's band
+   sweeps (bucket 32) held to the plain version; band_qr launches per
+   frontier expansion and the chains of each launch; (b) float32, the
+   scalar MINLP's first step, recorded without a gate;
+14. the IPM's settings and the systems zoo: (a) float32, the flagship's
+   make_step with solver_n_refine_kkt=1 against the default (2 steps
+   each: iterations, kkt_err, KKT solves and band_qr launches per Newton
+   step); (b) float64 (a subprocess that runs beside phases 11-13): one
+   flagship step with
+   solver_globalization="merit" against the port on the CPU at equal
+   iterations, the kinematic bicycle (5 closed-loop steps, condensed KKT:
+   bucket 16) and the kite at N=40 (3 steps, condensed, its soft height
+   bound within maximum_violation), each with kkt_err < 1e-6, and the
+   industrial polymerization at full width (N=20, 9 scenarios, 7,726
+   variables; a cold step and a warm one from its own prediction of the
+   next state), step 0's u0 against the port on the CPU to 1e-8 at equal
+   iterations.  The CPU yardstick of 13-14 runs in a subprocess of its
+   own beside phases 11-13.
 
 Every kernel counter is set to 0 just before each path and read just
-after.  The timed phases run one after another, but for the two cold DIP
-solves, which run beside each other and the CPU yardstick of phase 11;
-each heading carries the seconds since the start.  The last stdout line is {"ok": true, "device": {...}}; the line
+after.  Phases 2-10 run one after another; from phase 11 on, the two
+cold DIP solves run beside each other, the CPU yardstick of phase 11,
+phase 14's float64 subprocess and the CPU yardstick of 13-14, and each
+DIP child then goes on alone but for those last two; phase 13's float64
+subprocess runs after the DIP.  Each heading carries the seconds since the
+start.  The last stdout line is {"ok": true, "device": {...}}; the line
 before it lists the kernels, and the one before that names the card and
 its power limit.  Needs CUDA; exits non-zero without it.
 """
@@ -153,6 +183,10 @@ FLAGSHIP_INSTANCES = ("band_qr<float,13>", "band_qr<double,13>",
 MHE_INSTANCES = ("band_qr<float,97>", "band_qr<double,97>")
 # the instances the DIP launches (b=23, row bucket 32): reported, not gated
 DIP_INSTANCES = ("band_qr<float,32>", "band_qr<double,32>")
+# the instances Lotka-Volterra's relaxation (b=8) and the kinematic bicycle
+# (b=15) launch, row buckets 8 and 16: reported, not gated
+ZOO_INSTANCES = ("band_qr<float,8>", "band_qr<double,8>",
+                 "band_qr<float,16>", "band_qr<double,16>")
 
 
 # --------------------------------------------------------------------------
@@ -214,6 +248,16 @@ def dense_chain(D, U, Lo):
 DIP_SHAPES = (("dip_chain", (1, 101, 23, 1)),
               ("dip_spike_seg", (13, 7, 23, 47)),
               ("dip_spike_red", (1, 12, 23, 1)))
+# The chains of phases 13-14 (measured with the port on the CPU): the
+# condensed KKT of Lotka-Volterra's relaxation (row bucket 8), its
+# branch-and-bound node batches (8 nodes through the BBD KKT, bucket 32),
+# the condensed bicycles (buckets 16 and 32) and kite (bucket 13), and the
+# polymerization's 9 scenario chains with their 23-column root border.
+ZOO_SHAPES = (("lv_root", (1, 26, 8, 1)), ("lv_nodes", (8, 26, 32, 1)),
+              ("kinematic_bicycle", (1, 11, 15, 1)),
+              ("dynamic_bicycle", (1, 11, 21, 1)),
+              ("kite", (1, 41, 13, 1)),
+              ("industrial_poly", (9, 21, 24, 24)))
 BAND_CASES = {
     "float32": [("flagship", (9, 21, 13, 12), False, 1e-4, 1e-5),
                 ("batch128", (9 * 128, 21, 13, 12), False, 1e-4, 1e-5),
@@ -221,13 +265,14 @@ BAND_CASES = {
                 ("mhe_rotating", (1, 11, 83, 2), False, 1e-4, 1e-5),
                 ("diag_1e22", (9, 21, 13, 12), True, 1e-3, 1e-3)]
     + [(name, shape, False, 1e-3 if shape[1] > 21 else 1e-4, 1e-5)
-       for name, shape in DIP_SHAPES],
+       for name, shape in DIP_SHAPES + ZOO_SHAPES],
     "float64": [("flagship", (9, 21, 13, 12), False, 1e-12, 1e-13),
                 ("batch128", (9 * 128, 21, 13, 12), False, 1e-12, 1e-13),
                 ("flagship_width_S101", (9, 101, 13, 12), False, 1e-12,
                  1e-13),
                 ("mhe_rotating", (1, 11, 83, 2), False, 1e-12, 1e-13)]
-    + [(name, shape, False, 1e-12, 1e-13) for name, shape in DIP_SHAPES],
+    + [(name, shape, False, 1e-12, 1e-13)
+       for name, shape in DIP_SHAPES + ZOO_SHAPES],
 }
 
 
@@ -306,7 +351,7 @@ def kernel_phase():
 # phase 4: main path
 # --------------------------------------------------------------------------
 
-MAIN_STEPS = 3         # make_step calls per dtype (cut from 5 for time)
+MAIN_STEPS = 2         # make_step calls per dtype (cut from 5 for time)
 
 def drive_main_path(n_steps, f32_settings, record=False):
     """Flagship robust CSTR on the card: returns the steps' records.  The
@@ -454,10 +499,14 @@ def check_recorded(recorded, kname, kernel, what, twin=None, forward=True):
         a64 = [a.double() for a in cpu]
         x_64 = twin(*a64)
         if dname == "float64":
-            x_t = torch.linalg.solve(
-                dense_chain(*a64[:3]),
-                a64[3].reshape(a64[3].shape[0], -1, a64[3].shape[-1])
-            ).reshape(x_64.shape)
+            # one chain at a time: a batched multi-threaded LU of chains of
+            # ~800 rows has hung in MKL's row interchanges (DLASWP) on the
+            # CPU
+            A = dense_chain(*a64[:3])
+            B = a64[3].reshape(a64[3].shape[0], -1, a64[3].shape[-1])
+            x_t = torch.stack([torch.linalg.solve(A[c], B[c])
+                               for c in range(A.shape[0])]).reshape(
+                                   x_64.shape)
         else:
             x_t = twin(*cpu).double()
         x_same = x_64 if dname == "float64" else x_t  # the twin in dname
@@ -1279,8 +1328,8 @@ def mhe_f64():
 # phases 11 and 12: the double inverted pendulum and the LQR (child process)
 # --------------------------------------------------------------------------
 
-DIP_LOOP_STEPS = 3     # float64 closed-loop steps (tests/test_dip.py:155)
-DIP_F32_WARM = 2       # float32 warm steps after the cold solve
+DIP_LOOP_STEPS = 2     # float64 closed-loop steps (the test's 3, cut)
+DIP_F32_WARM = 1       # float32 warm steps after the cold solve (cut from 2)
 DIP_CHECKED = 24       # recorded SPIKE solves held to the plain SPIKE
 LQR_STEPS = 5          # batch-reactor LQR loop steps (phase 12)
 
@@ -1687,10 +1736,531 @@ def dip_phase(say, timeout=900):
     return dip
 
 
+# --------------------------------------------------------------------------
+# phases 13 and 14: mixed-integer MPC, the IPM's settings, the systems zoo
+# --------------------------------------------------------------------------
+
+# the scalar discrete MINLP of tests/test_minlp_bnb.py (N=3, u in {0..3})
+MINLP_A, MINLP_TARGET, MINLP_RFAC, MINLP_N, MINLP_UMAX = 0.5, 2.3, 0.05, 3, 3
+MINLP_X0 = 0.3
+MINLP_LOOP = 4         # its closed-loop steps (as the test)
+LV_STEPS = 2           # Lotka-Volterra closed-loop steps (as the test)
+LV_CHECKED = 24        # its recorded node-batch sweeps held to the plain one
+BICYCLE_STEPS = 5      # kinematic bicycle closed-loop steps (the test: 25)
+KITE_STEPS = 3         # kite closed-loop steps at N=40 (as the test)
+KITE_H_MIN = 100.0
+
+
+def minlp_scalar_mpc(strategy):
+    """tests/test_minlp_bnb.py:_make_mpc through the port's API."""
+    import dompc_tpu_torch as dm
+    m = dm.model.Model("discrete")
+    x = m.set_variable("_x", "x")
+    u = m.set_variable("_u", "u", input_type_integer=True)
+    m.set_rhs("x", MINLP_A * x + u)
+    m.setup()
+    mpc = dm.controller.MPC(m)
+    s = mpc.settings
+    s.n_horizon = MINLP_N
+    s.t_step = 1.0
+    s.minlp_strategy = strategy
+    cost = (m.x["x"] - MINLP_TARGET) ** 2
+    mpc.set_objective(lterm=cost, mterm=cost)
+    mpc.set_rterm(u=MINLP_RFAC)
+    mpc.bounds["lower", "_x", "x"] = -10
+    mpc.bounds["upper", "_x", "x"] = 10
+    mpc.bounds["lower", "_u", "u"] = 0
+    mpc.bounds["upper", "_u", "u"] = MINLP_UMAX
+    mpc.setup()
+    return mpc
+
+
+def minlp_exact_cost(x0, seq):
+    cost, x, up = 0.0, float(x0), 0.0
+    for u in seq:
+        cost += (x - MINLP_TARGET) ** 2 + MINLP_RFAC * (u - up) ** 2
+        x = MINLP_A * x + u
+        up = u
+    return cost + (x - MINLP_TARGET) ** 2
+
+
+def minlp_brute_force(x0):
+    import itertools
+    return min((minlp_exact_cost(x0, seq), list(seq)) for seq in
+               itertools.product(range(MINLP_UMAX + 1), repeat=MINLP_N))
+
+
+@contextlib.contextmanager
+def expansion_watch(record=False):
+    """Per frontier expansion of branch-and-bound (one call of
+    ``BranchAndBound._node_solve``): its nodes, band_qr's launches and the
+    chains of each launch.  With ``record``, a copy of the first
+    expansion's band sweeps is kept for :func:`check_recorded`."""
+    from dompc_tpu_torch.solver import band_qr, minlp
+    real_node, real_band = minlp.BranchAndBound._node_solve, \
+        band_qr.band_solve
+    out = dict(expansions=[], recorded=[], current=None)
+
+    def band(D, U, Lo, rhs, *a, **kw):
+        cur = out["current"]
+        if cur is not None:
+            cur["chains"].append(int(D.shape[0]))
+            cur["shapes"].add(tuple(rhs.shape))
+            if record and not out["expansions"]:
+                out["recorded"].append([x.clone() for x in (D, U, Lo, rhs)])
+        return real_band(D, U, Lo, rhs, *a, **kw)
+
+    def node(self, *args):
+        cur = dict(nodes=int(args[5].shape[0]), chains=[], shapes=set())
+        out["current"] = cur
+        n0 = real_band.launches
+        try:
+            return real_node(self, *args)
+        finally:
+            cur["launches"] = real_band.launches - n0
+            cur["shapes"] = sorted(list(sh) for sh in cur["shapes"])
+            out["expansions"].append(cur)
+            out["current"] = None
+
+    minlp.BranchAndBound._node_solve, band_qr.band_solve = node, band
+    try:
+        yield out
+    finally:
+        minlp.BranchAndBound._node_solve, band_qr.band_solve = \
+            real_node, real_band
+
+
+def _f_at(mpc):
+    """The NLP objective at the MPC's current solution."""
+    return float(mpc._f_fn(mpc._tensor(mpc.opt_x_num),
+                           mpc._tensor(mpc.opt_p_num)))
+
+
+def minlp_scalar_run(strategy, n_steps):
+    """The scalar MINLP's closed loop on the device of the environment;
+    the launch counter is zeroed just before the steps."""
+    import dompc_tpu_torch as dm
+    from dompc_tpu_torch.solver import band_qr
+    mpc = minlp_scalar_mpc(strategy)
+    sim = dm.Simulator(mpc.model)
+    sim.set_param(t_step=1.0)
+    sim.setup()
+    x0 = np.array([MINLP_X0])
+    mpc.x0 = x0
+    sim.x0 = x0
+    mpc.set_initial_guess()
+    L = mpc.layout
+    steps = []
+    band_qr.band_solve.launches = 0
+    band_qr.band_solve_tiled.launches = 0
+    with expansion_watch() as watch:
+        for _ in range(n_steps):
+            t1 = time.perf_counter()
+            u0 = mpc.make_step(x0)
+            _sync(mpc._device)
+            st = mpc.solver_stats
+            steps.append(dict(
+                ms=(time.perf_counter() - t1) * 1e3, x0=float(x0[0]),
+                u0=float(u0[0, 0]), seq=[float(mpc.opt_x_num[L.sl(
+                    ("u", k, 0))][0]) for k in range(MINLP_N)],
+                w=np.asarray(mpc.opt_x_num, dtype=float).tolist(),
+                f=_f_at(mpc), nodes=st.get("bnb_nodes"),
+                iters=st["iter_count"], success=bool(st["success"]),
+                kkt_err=st["kkt_err"]))
+            x0 = np.asarray(sim.make_step(u0)).reshape(-1)
+    return dict(steps=steps, launches=band_qr.band_solve.launches,
+                tiled_launches=band_qr.band_solve_tiled.launches,
+                expansions=watch["expansions"], device=str(mpc._device))
+
+
+def lv_run(n_steps=LV_STEPS, record=False):
+    """tests/test_lotka_volterra.py's closed loop (N=25, ni=2, an integer
+    input, branch-and-bound) with the condensed KKT for the relaxation, on
+    the device of the environment; launches counted from just before the
+    steps, per frontier expansion too."""
+    import dompc_tpu_torch as dm
+    from dompc_tpu_torch.solver import band_qr
+    from dompc_tpu_torch.systems import (lotka_volterra_model_integer,
+                                         lotka_volterra_mpc)
+    t0 = time.perf_counter()
+    model = lotka_volterra_model_integer()
+    mpc = lotka_volterra_mpc(model)
+    mpc.settings.kkt_solver = "condensed"
+    mpc._create_solver()
+    sim = dm.Simulator(model)
+    sim.set_param(t_step=0.3, substeps=4)
+    sim.setup()
+    setup_s = time.perf_counter() - t0
+    x0 = np.array([0.5, 0.7])
+    mpc.x0 = x0
+    sim.x0 = x0
+    mpc.set_initial_guess()
+    rec = {k: [] for k in ("ms", "iters", "kkt_err", "success", "nodes")}
+    band_qr.band_solve.launches = 0
+    band_qr.band_solve_tiled.launches = 0
+    with expansion_watch(record=record) as watch:
+        for _ in range(n_steps):
+            t1 = time.perf_counter()
+            u0 = mpc.make_step(x0)
+            _sync(mpc._device)
+            rec["ms"].append((time.perf_counter() - t1) * 1e3)
+            st = mpc.solver_stats
+            for key, name in (("iters", "iter_count"), ("kkt_err", "kkt_err"),
+                              ("success", "success"), ("nodes", "bnb_nodes")):
+                rec[key].append(st[name])
+            x0 = np.asarray(sim.make_step(u0)).reshape(-1)
+    rec.update(setup_s=setup_s, u=np.asarray(mpc.data["_u"]).tolist(),
+               x=np.asarray(mpc.data["_x"]).tolist(), x_end=x0.tolist(),
+               launches=band_qr.band_solve.launches,
+               tiled_launches=band_qr.band_solve_tiled.launches,
+               expansions=watch["expansions"], recorded=watch["recorded"],
+               device=str(mpc._device))
+    return rec
+
+
+def expansion_summary(expansions):
+    """band_qr launches per frontier expansion and chains per launch."""
+    return dict(
+        expansions=len(expansions),
+        nodes_per_expansion=[e["nodes"] for e in expansions],
+        launches_per_expansion=[e["launches"] for e in expansions],
+        chains_per_launch=sorted({c for e in expansions for c in e["chains"]}),
+        shapes=sorted({tuple(sh) for e in expansions for sh in e["shapes"]}))
+
+
+def minlp_f64():
+    """Child process (DOMPC_TPU_X64=1): phase 13 on the card.  The scalar
+    MINLP's three flows (against the brute-force optimum and against the
+    port on the CPU) and Lotka-Volterra's closed loop (its CPU yardstick
+    runs in a process of its own, :func:`zoo_cpu`)."""
+    from dompc_tpu_torch.solver import band_qr
+    check(os.environ.get("DOMPC_TPU_X64") == "1", "child needs X64")
+    rec = {}
+    # 13a: the scalar MINLP, bnb closed loop and one round step
+    gpu = minlp_scalar_run("bnb", MINLP_LOOP)
+    cpu = on_cpu(minlp_scalar_run, "bnb", MINLP_LOOP)
+    rnd = minlp_scalar_run("round", 1)
+    check(gpu["device"].startswith("cuda") and cpu["device"] == "cpu",
+          f"scalar MINLP devices {gpu['device']} / {cpu['device']}")
+    best, best_seq = minlp_brute_force(MINLP_X0)
+    s0 = gpu["steps"][0]
+    cost_bnb = minlp_exact_cost(MINLP_X0, s0["seq"])
+    cost_round = minlp_exact_cost(MINLP_X0,
+                                  np.round(rnd["steps"][0]["seq"]))
+    faults = []
+    if not s0["nodes"] > 0:
+        faults.append(f"step 0 took {s0['nodes']} nodes (want > 0)")
+    if s0["seq"] != [float(v) for v in best_seq] \
+            or abs(cost_bnb - best) > 1e-6:
+        faults.append(f"incumbent {s0['seq']} (cost {cost_bnb}) is not the "
+                      f"brute-force optimum {best_seq} (cost {best})")
+    if cost_bnb > cost_round + 1e-9:
+        faults.append(f"bnb cost {cost_bnb} > round cost {cost_round}")
+    for k, (sg, sc) in enumerate(zip(gpu["steps"], cpu["steps"])):
+        if abs(sg["u0"] - round(sg["u0"])) > 1e-8 or sg["kkt_err"] >= 1e-6:
+            faults.append(f"step {k}: u0 {sg['u0']}, kkt_err "
+                          f"{sg['kkt_err']:.2e}")
+        if sg["nodes"] != sc["nodes"] or sg["seq"] != sc["seq"] \
+                or _rel_max(sg["w"], sc["w"]) > 1e-10:
+            faults.append(f"step {k}: card nodes {sg['nodes']} seq "
+                          f"{sg['seq']}, CPU nodes {sc['nodes']} seq "
+                          f"{sc['seq']}, incumbent rel "
+                          f"{_rel_max(sg['w'], sc['w']):.2e}")
+    if not gpu["launches"] > 0 or gpu["tiled_launches"]:
+        faults.append(f"launches {gpu['launches']}, tiled "
+                      f"{gpu['tiled_launches']}")
+    rec["scalar"] = dict(
+        ms=[s["ms"] for s in gpu["steps"]],
+        cpu_ms=[s["ms"] for s in cpu["steps"]],
+        u0=[s["u0"] for s in gpu["steps"]],
+        seq0=s0["seq"], brute_force=best_seq, cost_bnb=cost_bnb,
+        cost_round=cost_round, nodes=[s["nodes"] for s in gpu["steps"]],
+        iters=[s["iters"] for s in gpu["steps"]],
+        kkt_err=[s["kkt_err"] for s in gpu["steps"]],
+        card_vs_cpu_w=max(_rel_max(a["w"], b["w"]) for a, b in
+                          zip(gpu["steps"], cpu["steps"])),
+        launches=gpu["launches"], tiled_launches=gpu["tiled_launches"],
+        round_launches=rnd["launches"],
+        **expansion_summary(gpu["expansions"]))
+    print("minlp_scalar " + json.dumps(rec["scalar"]), flush=True)
+    check(not faults, "scalar MINLP: " + "; ".join(faults))
+    # 13b: Lotka-Volterra at full width, the first expansion's sweeps held
+    # to the plain version
+    lv = lv_run(record=True)
+    check(lv["device"].startswith("cuda"), f"LV on {lv['device']}")
+    recorded = lv.pop("recorded")
+    n_pick = min(LV_CHECKED, len(recorded))
+    picked = [recorded[round(j * (len(recorded) - 1) / max(n_pick - 1, 1))]
+              for j in range(n_pick)]
+    kkt = check_recorded(picked, "band_qr", band_qr.band_solve,
+                         "float64 LV step 0, first frontier expansion")
+    kkt["of_sweeps"] = len(recorded)
+    summ = expansion_summary(lv.pop("expansions"))
+    check(lv["launches"] > 0 and lv["tiled_launches"] == 0
+          and all(lv["success"]) and max(lv["kkt_err"]) < 1e-6,
+          f"LV: launches {lv['launches']}, tiled {lv['tiled_launches']}, "
+          f"certified {lv['success']}, kkt_err {lv['kkt_err']}")
+    lv.update(kkt=kkt, **summ)
+    print("minlp_lv " + json.dumps({k: v for k, v in lv.items()
+                                    if k not in ("u", "x")}), flush=True)
+    rec["lv"] = lv
+    print("MINLP_RESULT " + json.dumps(rec), flush=True)
+
+
+def flagship_merit_step():
+    """The flagship (N=20, float64) with globalization="merit": one cold
+    step on the device of the environment."""
+    from dompc_tpu_torch.solver import band_qr
+    from dompc_tpu_torch.systems import cstr_robust_mpc, CSTR_X0
+    mpc = cstr_robust_mpc(n_horizon=20, n_robust=1)
+    mpc.settings.solver_globalization = "merit"
+    mpc._create_solver()
+    mpc.x0 = CSTR_X0
+    mpc.set_initial_guess()
+    band_qr.band_solve.launches = 0
+    band_qr.band_solve_tiled.launches = 0
+    t1 = time.perf_counter()
+    u0 = np.asarray(mpc.make_step(CSTR_X0)).reshape(-1)
+    _sync(mpc._device)
+    st = mpc.solver_stats
+    return dict(ms=(time.perf_counter() - t1) * 1e3, u0=u0.tolist(),
+                iters=st["iter_count"], success=bool(st["success"]),
+                kkt_err=st["kkt_err"], launches=band_qr.band_solve.launches,
+                tiled_launches=band_qr.band_solve_tiled.launches,
+                device=str(mpc._device))
+
+
+def poly_steps(n_steps):
+    """The industrial polymerization at full width (N=20, 9 scenarios,
+    7,726 variables): a cold step, then warm ones, each from the MPC's own
+    prediction of the next state (as phase 4), on the device of the
+    environment."""
+    from dompc_tpu_torch.solver import band_qr
+    from dompc_tpu_torch.systems import (industrial_poly_model,
+                                         industrial_poly_mpc,
+                                         industrial_poly_x0)
+    t0 = time.perf_counter()
+    mpc = industrial_poly_mpc(industrial_poly_model())
+    setup_s = time.perf_counter() - t0
+    x0 = industrial_poly_x0()
+    mpc.x0 = x0
+    mpc.set_initial_guess()
+    asm = getattr(mpc, "_kkt_structure_cond", None)
+    L = mpc.layout
+    rec = {k: [] for k in ("ms", "iters", "kkt_err", "success", "u0")}
+    band_qr.band_solve.launches = 0
+    band_qr.band_solve_tiled.launches = 0
+    with spike_watch() as watch:
+        for _ in range(n_steps):
+            t1 = time.perf_counter()
+            u0 = mpc.make_step(x0)
+            _sync(mpc._device)
+            rec["ms"].append((time.perf_counter() - t1) * 1e3)
+            st = mpc.solver_stats
+            for key, name in (("iters", "iter_count"), ("kkt_err", "kkt_err"),
+                              ("success", "success")):
+                rec[key].append(st[name])
+            rec["u0"].append(np.asarray(u0).reshape(-1).tolist())
+            x0 = np.asarray(mpc.opt_x_num[L.sl(("x_node", 1, 0))]) \
+                * mpc._x_scaling.data
+    chains = sorted({tuple(v["chain"]) for v in watch["solves"]})
+    rec.update(setup_s=setup_s, n_opt_x=mpc.n_opt_x,
+               launches=band_qr.band_solve.launches,
+               tiled_launches=band_qr.band_solve_tiled.launches,
+               kkt_solves=len(watch["solves"]), chains=chains,
+               structure=None if asm is None else [asm.C, asm.S, asm.b,
+                                                   asm.R],
+               device=str(mpc._device))
+    return rec
+
+
+def zoo_loop(name):
+    """The kinematic bicycle (N=10, BICYCLE_STEPS steps) or the kite (N=40,
+    KITE_STEPS steps) in closed loop with its simulator, with the condensed
+    KKT, on the device of the environment."""
+    from dompc_tpu_torch.solver import band_qr
+    from dompc_tpu_torch import systems
+    if name == "kite":
+        model = systems.kite_model()
+        mpc = systems.kite_mpc(model, n_horizon=40, h_min=KITE_H_MIN)
+        sim = systems.kite_simulator(model)
+        x0, n_steps = np.array([0.5, 0.3, 0.0]), KITE_STEPS
+    else:
+        model = systems.kinematic_bicycle_model()
+        mpc = systems.kinematic_bicycle_mpc(model)
+        sim = systems.kinematic_bicycle_simulator(model)
+        x0, n_steps = np.array([0.0, 0.0, 0.0, 0.1]), BICYCLE_STEPS
+    mpc.settings.kkt_solver = "condensed"
+    mpc._create_solver()
+    mpc.x0 = x0
+    sim.x0 = x0
+    mpc.set_initial_guess()
+    rec = {k: [] for k in ("ms", "iters", "kkt_err", "u0", "x")}
+    band_qr.band_solve.launches = 0
+    band_qr.band_solve_tiled.launches = 0
+    with spike_watch() as watch:
+        for _ in range(n_steps):
+            t1 = time.perf_counter()
+            u0 = mpc.make_step(x0)
+            _sync(mpc._device)
+            rec["ms"].append((time.perf_counter() - t1) * 1e3)
+            rec["iters"].append(mpc.solver_stats["iter_count"])
+            rec["kkt_err"].append(mpc.solver_stats["kkt_err"])
+            rec["u0"].append(np.asarray(u0).reshape(-1).tolist())
+            x0 = np.asarray(sim.make_step(u0)).reshape(-1)
+            rec["x"].append(x0.tolist())
+    rec.update(launches=band_qr.band_solve.launches,
+               tiled_launches=band_qr.band_solve_tiled.launches,
+               chains=sorted({tuple(v["chain"]) for v in watch["solves"]}),
+               n_opt_x=mpc.n_opt_x, device=str(mpc._device))
+    return rec
+
+
+def zoo_f64():
+    """Child process (DOMPC_TPU_X64=1): phase 14's float64 runs on the
+    card (their CPU yardstick runs in a process of its own)."""
+    check(os.environ.get("DOMPC_TPU_X64") == "1", "child needs X64")
+    rec = {"merit": flagship_merit_step()}
+    print("flagship_merit " + json.dumps(rec["merit"]), flush=True)
+    for name in ("kinematic_bicycle", "kite"):
+        run = zoo_loop(name)
+        print(f"zoo_{name} " + json.dumps(run), flush=True)
+        rec[name] = run
+        faults = []
+        if not run["device"].startswith("cuda") or run["launches"] == 0 \
+                or run["tiled_launches"]:
+            faults.append(f"on {run['device']}, launches {run['launches']}, "
+                          f"tiled {run['tiled_launches']}")
+        if max(run["kkt_err"]) >= 1e-6:
+            faults.append(f"kkt_err {run['kkt_err']}")
+        if name == "kite":
+            heights = [400.0 * np.sin(x[0]) * np.cos(x[1]) for x in run["x"]]
+            run["heights"] = heights
+            if min(heights) <= KITE_H_MIN - 10.0 - 1e-6:
+                faults.append(f"heights {heights} below the soft bound's "
+                              "maximum violation")
+        elif np.abs(run["u0"]).max() > 5 + 1e-9:
+            faults.append(f"inputs {run['u0']} outside [-5, 5]")
+        check(not faults, f"{name}: " + "; ".join(faults))
+    poly = poly_steps(2)
+    print("zoo_poly " + json.dumps(poly), flush=True)
+    check(poly["device"].startswith("cuda") and poly["launches"] > 0
+          and poly["tiled_launches"] == 0,
+          f"polymerization: on {poly['device']}, launches "
+          f"{poly['launches']}, tiled {poly['tiled_launches']}")
+    rec["poly"] = poly
+    print("ZOO_RESULT " + json.dumps(rec), flush=True)
+
+
+def zoo_cpu():
+    """Child process (DOMPC_TPU_PLATFORM=cpu, DOMPC_TPU_X64=1): the
+    yardstick of phases 13-14, the port on the CPU: Lotka-Volterra's
+    closed loop, the flagship's merit step and the polymerization's step
+    0.  It runs beside phases 11-14 on the card."""
+    import torch
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    lv = lv_run()
+    lv.pop("recorded")
+    lv["expansions"] = expansion_summary(lv["expansions"])
+    lv["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    merit = flagship_merit_step()
+    merit["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    poly = poly_steps(1)
+    poly["s"] = time.perf_counter() - t0
+    print("ZOOCPU_RESULT " + json.dumps(dict(lv=lv, merit=merit, poly=poly)),
+          flush=True)
+
+
+def refine_f32():
+    """Phase 14, float32 (the main process): the flagship's make_step with
+    solver_n_refine_kkt=1 against the default, REFINE_STEPS steps each
+    from the same start, KKT solves and band_qr launches counted."""
+    from dompc_tpu_torch.solver import band_qr
+    from dompc_tpu_torch.systems import cstr_robust_mpc, CSTR_X0
+    out = {}
+    for n_ref in (0, 1):
+        mpc = cstr_robust_mpc(n_horizon=20, n_robust=1)
+        mpc.settings.solver_tol = 1e-4
+        mpc.settings.solver_max_iter = 60
+        mpc.settings.solver_n_refine_kkt = n_ref
+        mpc._create_solver()
+        mpc.x0 = CSTR_X0
+        mpc.set_initial_guess()
+        rec = {k: [] for k in ("ms", "iters", "kkt_err", "success")}
+        band_qr.band_solve.launches = 0
+        band_qr.band_solve_tiled.launches = 0
+        with spike_watch() as watch:
+            for _ in range(REFINE_STEPS):
+                t1 = time.perf_counter()
+                mpc.make_step(CSTR_X0)
+                _sync(mpc._device)
+                rec["ms"].append((time.perf_counter() - t1) * 1e3)
+                for key, name in (("iters", "iter_count"),
+                                  ("kkt_err", "kkt_err"),
+                                  ("success", "success")):
+                    rec[key].append(mpc.solver_stats[name])
+        newton = mpc._solve_raw.newton_steps
+        rec.update(launches=band_qr.band_solve.launches,
+                   tiled_launches=band_qr.band_solve_tiled.launches,
+                   kkt_solves=len(watch["solves"]), newton_steps=newton,
+                   launches_per_kkt_solve=band_qr.band_solve.launches
+                   / max(len(watch["solves"]), 1),
+                   kkt_solves_per_newton_step=len(watch["solves"])
+                   / max(newton, 1))
+        print(f"refine n_refine_kkt={n_ref} " + json.dumps(rec), flush=True)
+        check(all(rec["success"]) and rec["launches"] > 0,
+              f"flagship float32 n_refine_kkt={n_ref}: {rec}")
+        out[n_ref] = rec
+    check(out[1]["kkt_solves_per_newton_step"]
+          > out[0]["kkt_solves_per_newton_step"],
+          "n_refine_kkt=1 added no KKT solve")
+    return out
+
+
+REFINE_STEPS = 2       # flagship float32 steps per n_refine_kkt setting
+
+
+def zoo_card_vs_cpu(minlp, zoo, cpu):
+    """Phases 13-14's yardstick: the card's float64 runs against the port's
+    on the CPU."""
+    lv, lv_c = minlp["lv"], cpu["lv"]
+    u_rel, x_rel = _rel_max(lv["u"], lv_c["u"]), _rel_max(lv["x"], lv_c["x"])
+    merit, merit_c = zoo["merit"], cpu["merit"]
+    m_rel = _rel_max(merit["u0"], merit_c["u0"])
+    poly, poly_c = zoo["poly"], cpu["poly"]
+    p_rel = _rel_max(poly["u0"][0], poly_c["u0"][0])
+    rec = dict(lv_u=u_rel, lv_x=x_rel, lv_nodes=lv["nodes"],
+               lv_cpu_nodes=lv_c["nodes"], lv_cpu_ms=lv_c["ms"],
+               merit_u0=m_rel, merit_iters=merit["iters"],
+               merit_cpu_iters=merit_c["iters"], merit_cpu_ms=merit_c["ms"],
+               poly_u0=p_rel, poly_iters=poly["iters"][0],
+               poly_cpu_iters=poly_c["iters"][0], poly_cpu_ms=poly_c["ms"][0],
+               cpu_s=dict(lv=lv_c["s"], merit=merit_c["s"],
+                          poly=poly_c["s"]))
+    print("zoo_card_vs_cpu " + json.dumps(rec), flush=True)
+    check(u_rel <= 1e-10 and x_rel <= 1e-10 and lv["nodes"] == lv_c["nodes"],
+          f"LV card vs CPU: u rel {u_rel:.2e}, x rel {x_rel:.2e} (bound "
+          f"1e-10), nodes {lv['nodes']} / {lv_c['nodes']}")
+    check(merit["success"] and merit["iters"] == merit_c["iters"]
+          and m_rel <= 1e-8,
+          f"flagship merit card vs CPU: iterations {merit['iters']} / "
+          f"{merit_c['iters']}, u0 rel {m_rel:.2e} (bound 1e-8), certified "
+          f"{merit['success']}")
+    check(poly["iters"][0] == poly_c["iters"][0] and p_rel <= 1e-8,
+          f"polymerization step 0 card vs CPU: iterations "
+          f"{poly['iters'][0]} / {poly_c['iters'][0]}, u0 rel {p_rel:.2e} "
+          "(bound 1e-8)")
+    return rec
+
+
 CHILD_TAGS = {"--main-path-f64": "F64_RESULT ", "--closed-loop-f64":
               "CL_RESULT ", "--mhe-f64": "MHE_RESULT ",
               "--dip-f64": "DIP_RESULT ", "--dip-cpu": "DIPCPU_RESULT ",
-              "--dip-f32": "DIP32_RESULT "}
+              "--dip-f32": "DIP32_RESULT ", "--minlp-f64": "MINLP_RESULT ",
+              "--zoo-f64": "ZOO_RESULT ", "--zoo-cpu": "ZOOCPU_RESULT "}
 
 
 def start_child(flag, x64=True, platform=None, sync=None):
@@ -1801,6 +2371,9 @@ def main():
     for inst in DIP_INSTANCES:
         print(f"  ptxas bucket 32 (DIP, b=23): {json.dumps(ptxas.get(inst))}",
               flush=True)
+    for inst in ZOO_INSTANCES:
+        print(f"  ptxas buckets 8/16 (LV b=8, bicycle b=15): "
+              f"{json.dumps(ptxas.get(inst))}", flush=True)
     if ptxas:   # empty only when build/ already held both libraries
         for inst in FLAGSHIP_INSTANCES:
             rep = ptxas.get(inst)
@@ -1825,6 +2398,17 @@ def main():
     # 7. RTI serving, float32, from phase 5's default-backend solution
     say("RTI serving float32, B=128:")
     rti = rti_phase(batched.pop("rti_start"))
+    # 14, float32: the flagship with n_refine_kkt=1 against the default
+    say("flagship float32, n_refine_kkt=1 against the default:")
+    refine = refine_f32()
+    # 13, float32: the scalar MINLP once, recorded without a gate
+    say("scalar MINLP float32 (recorded, no gate):")
+    minlp32 = minlp_scalar_run("bnb", 1)
+    minlp32_rec = dict(minlp32["steps"][0], launches=minlp32["launches"],
+                       tiled_launches=minlp32["tiled_launches"],
+                       **expansion_summary(minlp32["expansions"]))
+    minlp32_rec.pop("w")
+    print("minlp_scalar_f32 " + json.dumps(minlp32_rec), flush=True)
     say("make_step float64 and batched float64 (subprocess):")
     run64 = run_child("--main-path-f64", 900)
     main32, main64 = summarize("float32", run32), summarize("float64", run64)
@@ -1838,12 +2422,31 @@ def main():
     say("MHE and the coupled MHE + MPC loop float64 (subprocess):")
     mhe64 = run_child("--mhe-f64", 600)
     print("mhe_phase " + json.dumps(mhe64), flush=True)
-    # 11 and 12. the double inverted pendulum in float64 and float32, and
-    # the LQR loop
+    # 11 and 12, the double inverted pendulum in float64 and float32 and
+    # the LQR loop; beside them 14's float64 runs on the card (the
+    # polymerization's two 150-iteration steps set that child's length)
+    # and the CPU yardstick of 13-14
     say("DIP (N=100) float64 and float32, their cold solves side by side "
-        "with the CPU yardstick (three subprocesses):")
-    dip = dip_phase(say)
-    print("dip_phase " + json.dumps(dip), flush=True)
+        "with the CPU yardstick (three subprocesses); beside them the "
+        "systems zoo float64 on the card and the CPU yardstick of phases "
+        "13-14 (two more):")
+    zoo_kid = start_child("--zoo-f64")
+    zcpu = start_child("--zoo-cpu", platform="cpu")
+    try:
+        dip = dip_phase(say)
+        print("dip_phase " + json.dumps(dip), flush=True)
+        # 13, float64
+        say("mixed-integer MPC float64 (subprocess):")
+        minlp = run_child("--minlp-f64", 900)
+        print("minlp_phase " + json.dumps(minlp), flush=True)
+        say("the systems zoo float64 and the CPU yardstick of phases 13-14:")
+        zoo = finish_child(zoo_kid, "--zoo-f64", 900)
+        print("zoo_phase " + json.dumps(zoo), flush=True)
+        ycpu = finish_child(zcpu, "--zoo-cpu", 900)
+    finally:
+        stop_child(zoo_kid)
+        stop_child(zcpu)
+    zoo_card_vs_cpu(minlp, zoo, ycpu)
     say("done")
 
     def row(kname, case):
@@ -1880,6 +2483,18 @@ def main():
         dip_f64=dip["f64"]["tiled_launches"],
         dip_f32=dip["f32"]["tiled_launches"],
         lqr_f64=dip["lqr"]["launches"]["band_sweep_tiled"])
+    for kname, key in (("band_qr", "launches"),
+                       ("band_sweep_tiled", "tiled_launches")):
+        by_path[kname].update(
+            make_step_f32_n_refine_kkt0=refine[0][key],
+            make_step_f32_n_refine_kkt1=refine[1][key],
+            minlp_scalar_f32=minlp32[key],
+            minlp_scalar_f64=minlp["scalar"][key],
+            lotka_volterra_f64=minlp["lv"][key],
+            flagship_merit_f64=zoo["merit"][key],
+            kinematic_bicycle_f64=zoo["kinematic_bicycle"][key],
+            kite_f64=zoo["kite"][key],
+            industrial_poly_f64=zoo["poly"][key])
     kernels = []
     for kname, src, line, main_path in (
             ("band_qr", "dompc_tpu_torch/csrc/band_qr.cu",
@@ -1911,18 +2526,41 @@ def main():
                     "bound_by", "max_abs_err")}
                 for r in rows if r["kernel"] == kname
                 and r["case"].startswith("dip_")},
+            # the chains of phases 13-14 (ZOO_SHAPES)
+            "zoo": {
+                f"{r['case']}_{r['dtype']}": {k: r[k] for k in (
+                    "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "max_abs_err")}
+                for r in rows if r["kernel"] == kname
+                and r["case"] in dict(ZOO_SHAPES)},
             "launches_by_path": by_path[kname],
+            # every shape phase 3 holds the kernel at, old and new
+            "launch_shapes": {r["case"]: r["shape"] for r in rows
+                              if r["kernel"] == kname},
             "ptxas_flagship": [ptxas.get(i) for i in FLAGSHIP_INSTANCES
                                if i.startswith(kname + "<")],
             "ptxas_bucket97": [ptxas.get(i) for i in MHE_INSTANCES
                                if i.startswith(kname + "<")],
             "ptxas_bucket32": [ptxas.get(i) for i in DIP_INSTANCES
                                if i.startswith(kname + "<")],
+            "ptxas_bucket8_16": [ptxas.get(i) for i in ZOO_INSTANCES
+                                 if i.startswith(kname + "<")],
             "kkt_sweeps": [kkt, run64["kkt"], rti["kkt"],
                            mhe["tridiag"]["kkt"],
                            dip["f64"]["sweeps"]["spike"],
-                           dip["f32"]["sweeps"]["spike"]]
+                           dip["f32"]["sweeps"]["spike"], minlp["lv"]["kkt"]]
             if kname == "band_qr" else [batched["kkt"]]})
+        if kname == "band_qr":
+            # per frontier expansion of branch-and-bound: band_qr launches
+            # and the chains of each launch
+            kernels[-1]["bnb_expansions"] = {
+                path: {k: rec[k] for k in (
+                    "expansions", "nodes_per_expansion",
+                    "launches_per_expansion",
+                    "chains_per_launch", "shapes")}
+                for path, rec in (("minlp_scalar_f64", minlp["scalar"]),
+                                  ("lotka_volterra_f64", minlp["lv"]),
+                                  ("minlp_scalar_f32", minlp32_rec))}
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1949,5 +2587,14 @@ if __name__ == "__main__":
     elif sys.argv[1:] == ["--dip-f32"]:
         sys.path.insert(0, ROOT)
         dip_card_f32()
+    elif sys.argv[1:] == ["--minlp-f64"]:
+        sys.path.insert(0, ROOT)
+        minlp_f64()
+    elif sys.argv[1:] == ["--zoo-f64"]:
+        sys.path.insert(0, ROOT)
+        zoo_f64()
+    elif sys.argv[1:] == ["--zoo-cpu"]:
+        sys.path.insert(0, ROOT)
+        zoo_cpu()
     else:
         main()

@@ -37,6 +37,7 @@ from ..tools import _profiler as profiler
 from ..tools._optxview import make_mpc_resolver
 from ..data import MPCData
 from ..solver.ipm import make_ipm_solver, ipm_settings_from
+from ..solver.minlp import BranchAndBound
 from ..solver.bbd import (BBDAssembler, CondensedAssembler, bbd_kkt_solve,
                           bbd_solve, band_backend, demote_by_usage,
                           scatter_sum_cols, ROOT)
@@ -1117,6 +1118,7 @@ class MPC(Optimizer, IteratedVariables):
             structured_solve=structured_solve,
             dtype=self._dtype, device=self._device)
         self._optx_resolver = make_mpc_resolver(self)
+        self._bnb = None    # branch-and-bound over this solver's oracles
         self.opt_x_num = np.zeros(self.n_opt_x)
         self.opt_p_num = np.zeros(self.n_opt_p)
         self.lam_g_num = np.zeros(self.n_opt_lagr + self._n_ineq)
@@ -1227,13 +1229,62 @@ class MPC(Optimizer, IteratedVariables):
         }
         self.flags["initial_run"] = True
 
+    def _integer_mask(self):
+        u_spec = self.model.spec("_u")
+        int_mask = np.zeros(self.model.n_u, bool)
+        for name in self.model.integer_u:
+            int_mask[u_spec.slice(name)] = True
+        return int_mask
+
+    def _integer_w_indices(self):
+        """Indices into opt_x of every integer-input entry over the horizon
+        and scenarios, plus the per-entry scaling (integrality holds for
+        w * scale)."""
+        L = self.layout
+        int_mask = self._integer_mask()
+        all_idx = np.arange(L.size)
+        idx, sc = [], []
+        for key in L.offsets:
+            if key[0] == "u":
+                idx.append(all_idx[L.sl(key)][int_mask])
+                sc.append(self._u_scaling.data[int_mask])
+        return np.concatenate(idx), np.concatenate(sc)
+
+    def _integer_solution(self):
+        """Integer inputs (the reference delegates to BONMIN): ``"bnb"``
+        runs batched branch-and-bound below the relaxation just solved
+        (solver/minlp.py); ``"round"``, or bnb finding nothing, rounds the
+        relaxation, exact whenever it is near-integral."""
+        st = self.settings
+        if st.minlp_strategy == "bnb":
+            if self._bnb is None:
+                idx, sc = self._integer_w_indices()
+                self._bnb = BranchAndBound(
+                    self, idx, sc, tol=st.solver_tol,
+                    max_iter=st.solver_max_iter,
+                    batch_width=st.bnb_batch_width,
+                    max_nodes=st.bnb_max_nodes)
+            res = self._bnb.refine(self.opt_p_num, self._last_sol)
+            self.solver_stats["bnb_nodes"] = res.n_nodes
+            if res.success:
+                # the integral primal becomes the solution (and the next
+                # warm start); the duals stay those of the relaxation: the
+                # next step warm-starts the relaxation, not the node
+                self.opt_x_num = res.w
+                self.opt_x_num_unscaled = res.w * self.opt_x_scaling
+                return
+        L = self.layout
+        us = self._u_scaling.data
+        int_mask = self._integer_mask()
+        for key in L.offsets:
+            if key[0] == "u":
+                blk = self.opt_x_num[L.sl(key)] * us
+                blk[int_mask] = np.round(blk[int_mask])
+                self.opt_x_num[L.sl(key)] = blk / us
+
     def make_step(self, x0) -> np.ndarray:
         """One closed-loop control step (reference: _mpc.py:975-1059)."""
         assert self.flags["setup"], "MPC was not setup yet."
-        if self.model.integer_u:
-            raise NotImplementedError(
-                "integer inputs (the minlp branch-and-bound) are not ported "
-                "yet")
         x0 = np.asarray(x0, dtype=float).reshape(-1)
         assert x0.size == self.model.n_x
         if not self.flags["set_initial_guess"]:
@@ -1242,6 +1293,8 @@ class MPC(Optimizer, IteratedVariables):
 
         self.opt_p_num = self._assemble_opt_p(x0)
         self.solve()
+        if self.model.integer_u:
+            self._integer_solution()
 
         L = self.layout
         u0 = self.opt_x_num[L.sl(("u", 0, 0))] * self._u_scaling.data

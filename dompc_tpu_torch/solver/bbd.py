@@ -650,6 +650,30 @@ def _spike_parts(S, dtype, backend, n_refine):
     return n_parts, n_refine
 
 
+def chain_sweep(b, device, backend, n_parts):
+    """The chain sweep ``bbd_solve`` takes, decided from the shape before any
+    launch: (sweep, plain_route).  On the card a band wider than the
+    kernels' widest row bucket takes the plain sweep (``plain_route``), as
+    JAX routes chains past its fit rule to the XLA lanes sweep
+    (``bbd.py:795-805``); the tiled kernel comes before SPIKE
+    (``bbd.py:868-873``); chains of ``n_parts`` segments take SPIKE.  On the
+    CPU JAX's "scan" choice sweeps the whole chain, whatever the partition
+    (``bbd.py:884-885``)."""
+    on_card = torch.device(device).type != "cpu"
+    if on_card and b > band_qr.ROW_BUCKETS[-1]:
+        plain = band_qr.band_solve_qr_multi
+        if n_parts:
+            return (lambda *chains: batchqr.band_solve_spike_impl(
+                *chains, n_parts, sweep=plain)), True
+        return plain, True
+    if backend == "pallas_tiled":
+        return band_qr.band_solve_tiled, False
+    if n_parts and on_card:
+        return (lambda *chains: batchqr.band_solve_spike_impl(
+            *chains, n_parts)), False
+    return band_qr.band_solve, False
+
+
 def bbd_solve(D, U, Lo, Bord, Root, rhs_c, rhs_r, n_refine=0,
               backend="pallas"):
     """Solve a batch of bordered-block-diagonal systems.
@@ -663,8 +687,10 @@ def bbd_solve(D, U, Lo, Bord, Root, rhs_c, rhs_r, n_refine=0,
     On the card, chains of S >= ``SPIKE_S_MIN`` stages are cut into the
     partition of :func:`_spike_parts` and solved by
     :func:`batchqr.band_solve_spike_impl` (two kernel launches a solve);
-    on the CPU they take the plain sweep whole, as JAX's does.  The
-    roots are then eliminated by batched small dense Schur-complement
+    on the CPU they take the plain sweep whole, as JAX's does.  A band
+    wider than the kernels' widest row bucket takes the plain sweep on the
+    card too (:func:`chain_sweep`), counted in ``bbd_solve.plain_routes``.
+    The roots are then eliminated by batched small dense Schur-complement
     solves.  ``n_refine`` passes of iterative refinement re-run the sweep
     on the residual.
     """
@@ -675,16 +701,12 @@ def bbd_solve(D, U, Lo, Bord, Root, rhs_c, rhs_r, n_refine=0,
         return x_c[0], x_r[0]
     B, C, S, b, R = Bord.shape
     n_parts, n_refine = _spike_parts(S, D.dtype, backend, n_refine)
-    if backend == "pallas_tiled":
-        # JAX takes the tiled kernel before SPIKE (bbd.py:868-873)
-        sweep = band_qr.band_solve_tiled
-    elif n_parts and D.device.type != "cpu":
-        def sweep(*chains):
-            return batchqr.band_solve_spike_impl(*chains, n_parts)
-    else:
-        # on the CPU JAX's "scan" choice sweeps the whole chain, whatever
-        # the partition (bbd.py:884-885); only its n_refine bump applies
-        sweep = band_qr.band_solve
+    sweep, plain_route = chain_sweep(b, D.device, backend, n_parts)
+    if plain_route:
+        warnings.warn(
+            f"band b={b} exceeds the band kernels' widest row bucket "
+            f"{band_qr.ROW_BUCKETS[-1]}; using the plain sweep.")
+        _bbd_solve.plain_routes += 1
     D, U, Lo = (a.reshape((B * C,) + a.shape[2:]).contiguous()
                 for a in (D, U, Lo))
 
@@ -713,3 +735,9 @@ def bbd_solve(D, U, Lo, Bord, Root, rhs_c, rhs_r, n_refine=0,
             x_c = x_c + e_c
             x_r = x_r + e_r
     return x_c, x_r
+
+
+# solves routed past the kernels to the plain sweep (counted through the
+# alias, so a caller that rebinds the module's name still counts here)
+_bbd_solve = bbd_solve
+bbd_solve.plain_routes = 0

@@ -1,12 +1,16 @@
 """Primal-dual interior-point NLP solver (PyTorch port), batch-first.
 
-Counterpart of the JAX package's ``solver/ipm.py`` on its default path:
-Fiacco-McCormick barrier loop with exact-Hessian primal-dual Newton steps,
-the Wächter-Biegler (theta, phi) filter line search, second-order
-correction, the regularization ladder capped at ``prox_max``, the dual
-trust region ``dual_cap``, select-gated feasibility restoration
-(``use_resto``), the best-iterate watchdog and the active-set Newton
-polish.
+Counterpart of the JAX package's ``solver/ipm.py``: Fiacco-McCormick
+barrier loop with exact-Hessian primal-dual Newton steps, the
+Wächter-Biegler (theta, phi) filter line search (or the l1-merit
+backtracking of ``globalization="merit"``), second-order correction, the
+regularization ladder capped at ``prox_max``, the dual trust region
+``dual_cap``, select-gated feasibility restoration (``use_resto``), the
+best-iterate watchdog, the active-set Newton polish, the least-squares
+dual estimate of ``cold_dual_init``, the multiplier refit of
+``dual_refit``, KKT-level iterative refinement (``n_refine_kkt``), the
+real-time-iteration modes and per-solve bound values
+(``dynamic_bounds``).
 
 Problem form:
 
@@ -34,10 +38,9 @@ from .._config import resolve_device, resolve_dtype
 
 @dataclass(frozen=True)
 class IPMSettings:
-    """The JAX package's ``IPMSettings`` fields that the ported path reads,
-    with the same defaults (see there for the reasoning behind each), plus
-    those of ``_UNPORTED``.  ``lam_init_max``, ``refit_delta`` and
-    ``debug`` come with the code paths that read them."""
+    """The JAX package's ``IPMSettings``, with the same defaults (see there
+    for the reasoning behind each).  ``debug`` prints the per-iteration
+    diagnostics on the host, one line per batch element."""
     tol: float = 1e-8
     tol_loop: float | None = None
     max_iter: int = 200
@@ -66,9 +69,11 @@ class IPMSettings:
     delta_reg: float = 1e-8
     delta_cons: float = 1e-11
     cold_dual_init: bool = False
+    lam_init_max: float = 1e4   # reject larger LS dual estimates (lam = 0)
     dual_cap: float = 1e2
     prox_max: float = 1e4
     s_max: float = 100.0
+    debug: bool = False
     reg_retries: int = 5
     use_soc: bool = True
     do_polish: bool = True
@@ -76,16 +81,12 @@ class IPMSettings:
     rti_prox: float = 1e-3      # fixed Levenberg damping of RTI steps
     rti_step_max: float = 10.0  # trust-region cap: |dw|_inf * alpha <= this
     dual_refit: bool = False
+    refit_delta: float = 1e8    # proximal weight of the refit solve
     rti_drift_tol: float | None = None  # bounded-drift RTI band
     rti_extra_max: int = 6      # cap on drift-correction iterations
     rti_filter: bool = False    # filter-RTI hybrid (capped globalized loop)
     rti_mu_decay: float = 0.1   # per-RTI-iteration barrier decrease
     n_refine_kkt: int = 0
-
-
-# settings whose non-default values select code paths not ported yet
-_UNPORTED = {"globalization": "filter", "cold_dual_init": False,
-             "dual_refit": False, "n_refine_kkt": 0}
 
 
 def ipm_settings_from(st, **overrides) -> "IPMSettings":
@@ -209,6 +210,26 @@ def _dot(a, b):
     return (a * b).sum(-1)
 
 
+def _debug(fmt, **vals):
+    """``IPMSettings.debug``: print ``fmt`` on the host once per batch
+    element, with element ``i`` of each (B,) value (scalars as given)."""
+    rows = {k: (v.detach().cpu().reshape(-1).tolist()
+                if torch.is_tensor(v) and v.ndim else
+                (v.item() if torch.is_tensor(v) else v))
+            for k, v in vals.items()}
+    B = max((len(v) for v in rows.values() if isinstance(v, list)),
+            default=1)
+    for i in range(B):
+        print(("" if B == 1 else f"[{i}] ") + fmt.format(**{
+            k: (v[i] if isinstance(v, list) else v)
+            for k, v in rows.items()}), flush=True)
+
+
+def _argmaxabs(x):
+    return x.abs().argmax(-1) if x.shape[-1] else \
+        torch.zeros(x.shape[:-1], dtype=torch.int64, device=x.device)
+
+
 def make_ipm_solver(
     f: Callable, g: Callable, h: Callable,
     lb, ub, n_eq: int, n_ineq: int,
@@ -222,9 +243,10 @@ def make_ipm_solver(
     dynamic_bounds: bool = False,
     dtype: Optional[torch.dtype] = None,
     device: Optional[torch.device] = None,
+    _bound_masks=None,
 ):
-    """Build ``solve(w0, p, lam0=None, mu0=None, zl0=None, zu0=None) ->
-    IPMSolution``.
+    """Build ``solve(w0, p, lam0=None, mu0=None, zl0=None, zu0=None,
+    lb_dyn=None, ub_dyn=None) -> IPMSolution``.
 
     ``w0`` (B, n) with ``p`` (B, n_p) solves B instances in lockstep, each
     as it would be solved alone; the solution's fields keep the batch axis
@@ -247,27 +269,31 @@ def make_ipm_solver(
     ``device`` and ``dtype`` default to the environment's choice
     (``DOMPC_TPU_PLATFORM``, ``DOMPC_TPU_X64``): CUDA unless the CPU is
     asked for.
+
+    ``dynamic_bounds=True`` lets a call pass per-element bound values
+    ``lb_dyn``/``ub_dyn`` (B, n), as branch-and-bound's node batches do;
+    which entries are bounded at all stays that of the static ``lb``/``ub``.
     """
     st = settings
-    for name, default in _UNPORTED.items():
-        if getattr(st, name) != default:
-            raise NotImplementedError(
-                f"IPM setting {name}={getattr(st, name)!r} is not ported "
-                f"yet (only the default {default!r})")
-    if dynamic_bounds:
-        raise NotImplementedError("dynamic_bounds is not ported yet")
+    if st.globalization not in ("filter", "merit"):
+        raise ValueError(f"globalization must be 'filter' or 'merit', got "
+                         f"{st.globalization!r}")
     device = resolve_device() if device is None else torch.device(device)
     dtype = resolve_dtype() if dtype is None else dtype
 
     def T(x):
         return torch.as_tensor(x, dtype=dtype, device=device)
 
-    lb = T(np.asarray(lb, dtype=float))
-    ub = T(np.asarray(ub, dtype=float))
-    n = lb.shape[0]
+    def bound(x):
+        return T(x) if torch.is_tensor(x) else T(np.asarray(x, dtype=float))
+
+    # lb/ub are (n,), or (B, n) when rebound per solve (dynamic_bounds)
+    lb, ub = bound(lb), bound(ub)
+    n = lb.shape[-1]
     m, q = n_eq, n_ineq
-    has_lb = torch.isfinite(lb)
-    has_ub = torch.isfinite(ub)
+    has_lb, has_ub = _bound_masks if _bound_masks is not None else (
+        torch.isfinite(lb), torch.isfinite(ub))
+    filter_mode = st.globalization == "filter"
     ones_q = torch.ones((q,), dtype=torch.bool, device=device)
     zeros_qb = torch.zeros((q,), dtype=torch.bool, device=device)
     inf = float("inf")
@@ -379,8 +405,13 @@ def make_ipm_solver(
         s_d = torch.clamp((lam_sum + z_sum) / max(denom, 1),
                           min=st.s_max) / st.s_max
         s_c = torch.clamp(z_sum / max(n + q, 1), min=st.s_max) / st.s_max
-        err_d = _maxabs(torch.cat([r_dw, r_ds], -1)) / s_d
+        r_d_all = torch.cat([r_dw, r_ds], -1)
+        err_d = _maxabs(r_d_all) / s_d
         err_p = _maxabs(r_p)
+        if st.debug:
+            _debug("   kkt: err_d={ed:.2e}@{ia} (n={n}) err_p={ep:.2e}@{ip}",
+                   ed=err_d, ia=_argmaxabs(r_d_all), n=n, ep=err_p,
+                   ip=_argmaxabs(r_p))
         return err_d, err_p, comp_l, comp_u, s_c
 
     def err_from(res, mu):
@@ -458,9 +489,12 @@ def make_ipm_solver(
                     return s_solve(kkt_ctx, r_dw_, r_g_, r_h_mod_,
                                    bvec(delta))
 
-            def lag_grad(ww):
-                return (grad_f(ww, p) + jgT_mv(ww, p, lam_g)
-                        + jhT_mv(ww, p, lam_h))
+            def lag_grad(ww, _lg=lam_g, _lh=lam_h):
+                # the multipliers of the assembled Hessian: the dual refit
+                # below rebinds lam_g/lam_h, but the operator of the
+                # residual and curvature checks must be the factored one
+                return (grad_f(ww, p) + jgT_mv(ww, p, _lg)
+                        + jhT_mv(ww, p, _lh))
 
             def hvp(dx):
                 # Lagrangian Hessian-vector product via jvp of the gradient
@@ -477,25 +511,49 @@ def make_ipm_solver(
             def hvp(dx):
                 return (Hw @ dx[..., None])[..., 0]
 
+        # least-squares multiplier refit (dual_refit): one solve with a
+        # dominant primal proximal weight returns dlam ~ -(J J^T)^-1 J r_dw,
+        # applied at full step before the Newton direction is computed (the
+        # caller adds dlam_pre outside the alpha-scaled update)
+        dlam_pre = w.new_zeros((B, m + q))
+        if st.dual_refit and (m + q):
+            _, dgr, dhr = do_solve_rhs(
+                r_dw, w.new_zeros((B, m)),
+                (-r_ds * inv_sig_s) if q else empty(w), st.refit_delta)
+            ok_r = _all_finite(dgr, dhr)
+            dgr = _sel(ok_r, dgr, torch.zeros_like(dgr))
+            dhr = _sel(ok_r, dhr, torch.zeros_like(dhr))
+            dlam_pre = torch.cat([dgr, dhr], -1)
+            lam_g = lam_g + dgr
+            lam_h = lam_h + dhr
+            r_dw = gf + jgT_mv(w, p, lam_g) + jhT_mv(w, p, lam_h) \
+                - torch.where(has_lb, _c(mu) / dl_w, 0.0) \
+                + torch.where(has_ub, _c(mu) / du_w, 0.0)
+            r_ds = lam_h - _c(mu) / dl_s if q else empty(w)
+            r_h_mod = r_h - r_ds * inv_sig_s
+
         def do_solve(delta):
             return do_solve_rhs(r_dw, r_g, r_h_mod, delta)
 
         rhs_norm = torch.maximum(torch.maximum(_maxabs(r_dw), _maxabs(r_g)),
                                  _maxabs(r_h_mod)) + 1e-12
 
-        def step_residual(step, delta, Hd):
+        def step_residuals(step, delta, Hd):
+            """The true residual of a step, by the matrix-free operator."""
             dw_, dg_, dh_ = step
             res_w = (Hd + (sig_w + _c(delta)) * dw_ + r_dw
                      + jgT_mv(w, p, dg_) + jhT_mv(w, p, dh_))
-            out = _maxabs(res_w)
-            if m:
-                res_g = jg_mv(w, p, dw_) - st.delta_cons * dg_ + r_g
-                out = torch.maximum(out, _maxabs(res_g))
-            if q:
-                res_h = jh_mv(w, p, dw_) - inv_sig_s * dh_ \
-                    - st.delta_cons * dh_ + r_h_mod
-                out = torch.maximum(out, _maxabs(res_h))
-            return out
+            res_g = (jg_mv(w, p, dw_) - st.delta_cons * dg_ + r_g) if m \
+                else r_g
+            res_h = (jh_mv(w, p, dw_) - inv_sig_s * dh_
+                     - st.delta_cons * dh_ + r_h_mod) if q else r_h_mod
+            return res_w, res_g, res_h
+
+        def step_residual(step, delta, Hd):
+            res_w, res_g, res_h = step_residuals(step, delta, Hd)
+            return torch.maximum(torch.maximum(_maxabs(res_w),
+                                               _maxabs(res_g)),
+                                 _maxabs(res_h))
 
         def need_retry(step, delta):
             """Non-finite, wrong curvature, or an inaccurate linear solve
@@ -526,6 +584,17 @@ def make_ipm_solver(
                          for new, old in zip(do_solve(delta), step))
             prev_delta = torch.where(bad, delta, prev_delta)
 
+        # KKT-level iterative refinement (n_refine_kkt): re-solve the same
+        # factored system with the true residual of the step, formed in the
+        # state dtype by the matrix-free operator (the mixed-precision
+        # recipe below the float32 solve's noise floor)
+        for _ in range(st.n_refine_kkt):
+            res = tuple(r.to(w.dtype) for r in step_residuals(
+                step, prev_delta, hvp(step[0])))
+            corr = do_solve_rhs(*res, prev_delta)
+            ok_c = _all_finite(*corr)
+            step = tuple(_sel(ok_c, a + c, a) for a, c in zip(step, corr))
+
         dw, dlam_g, dlam_h = step
         # non-finite guard: zero the step and escalate the Levenberg prox
         step_ok = _all_finite(dw, dlam_g, dlam_h)
@@ -534,6 +603,10 @@ def make_ipm_solver(
         dlam_h = _sel(step_ok, dlam_h, torch.zeros_like(dlam_h))
         prev_delta = torch.where(step_ok, prev_delta,
                                  torch.clamp(prox, min=1e-8) * 100.0)
+        if st.debug:
+            _debug("  newton: |dw|={dwn:.2e}@{i} delta={d:.1e} res={r:.2e}",
+                   dwn=_maxabs(dw), i=_argmaxabs(dw), d=prev_delta,
+                   r=step_residual(step, prev_delta, hvp(step[0])))
 
         def recover(dw_, dlam_g_, dlam_h_, r_h_used):
             ds_ = -(r_h_used + jh_mv(w, p, dw_)) if q else empty(w)
@@ -572,7 +645,7 @@ def make_ipm_solver(
             return recover(dwr, dgr2, dhr2, r_h)
 
         return recover(dw, dlam_g, dlam_h, r_h) + (resolve_soc, prev_delta,
-                                                   resolve_resto)
+                                                   dlam_pre, resolve_resto)
 
     # -- fraction to boundary ----------------------------------------------
     def max_alpha(x, dx, dist, active):
@@ -634,28 +707,51 @@ def make_ipm_solver(
         filt_n0 = torch.where(mu_dec, 0, stt.filt_n)
 
         with _range("ipm.newton"):
-            (dw, ds, dlam, dzl, dzu, resolve_soc, delta_used,
+            (dw, ds, dlam, dzl, dzu, resolve_soc, delta_used, dlam_pre,
              resolve_resto) = newton_step(w, s, lam, zl, zu, p, mu_new,
                                           stt.prox, pre, live)
-        # dual trust region: primal acceptance cannot see multiplier
-        # explosions, so bound them here
-        dl_norm = _maxabs(dlam)
-        l_norm = _maxabs(lam)
-        dlam = dlam * _c(torch.clamp(st.dual_cap * (1.0 + l_norm)
-                                     / torch.clamp(dl_norm, min=_TINY),
-                                     max=1.0))
+        # the multiplier refit is part of the point, not of the searched
+        # direction: applied at full step, outside the alpha-scaled update
+        lam_b = lam + dlam_pre
+        if filter_mode:
+            # dual trust region: primal acceptance cannot see multiplier
+            # explosions, so bound them here
+            dl_norm = _maxabs(dlam)
+            l_norm = _maxabs(lam_b)
+            dlam = dlam * _c(torch.clamp(st.dual_cap * (1.0 + l_norm)
+                                         / torch.clamp(dl_norm, min=_TINY),
+                                         max=1.0))
         a_p, a_d = fraction_to_boundary(w, s, dw, ds, zl, zu, dzl, dzu,
                                         mu_new)
+        # the l1 merit's penalty
+        nu = torch.clamp(2.0 * _maxabs(lam_b + dlam), min=1.0)
         err_ref = err_from(res0, mu_new)
 
         def kkt_decrease(alpha, dw_, ds_, dlam_, dzl_, dzu_, a_d_):
             err_t = kkt_error(w + _c(alpha) * dw_, s + _c(alpha) * ds_,
-                              lam + _c(alpha) * dlam_, zl + _c(a_d_) * dzl_,
-                              zu + _c(a_d_) * dzu_, p, mu_new)
+                              lam_b + _c(alpha) * dlam_,
+                              zl + _c(a_d_) * dzl_, zu + _c(a_d_) * dzu_, p,
+                              mu_new)
             return torch.isfinite(err_t) & (err_t < 0.99 * err_ref)
 
         theta_k = constraint_violation(pre[1], pre[2], s)
         phi_k = barrier_value(w, s, p, mu_new)
+
+        def ls_trial(alpha, dw_, ds_):
+            """The l1-merit acceptance test at one step size
+            (``globalization="merit"``)."""
+            s_t = s + _c(alpha) * ds_
+            w_t = w + _c(alpha) * dw_
+            phi = barrier_value(w_t, s_t, p, mu_new)
+            gv_t, hv_t = eval_all(w_t, p)
+            vio = constraint_violation(gv_t, hv_t, s_t)
+            merit0 = phi_k + nu * theta_k
+            merit = phi + nu * vio
+            return torch.isfinite(merit) & (
+                (merit <= merit0 - 1e-8 * alpha
+                 * torch.clamp(theta_k, min=1e-16))
+                | (vio <= theta_k * (1 - 1e-4 * alpha))
+                | (merit <= merit0 + 1e-12 * merit0.abs()))
 
         def gphi_dot(dw_, ds_):
             """Directional derivative of the barrier objective."""
@@ -700,7 +796,11 @@ def make_ipm_solver(
         # as f-type; it only matters where the filter test is not already
         # an f-type acceptance, so it is computed when some element needs
         # it and selected.
-        acc0, ft0 = accept_fn(a_p, dw, ds, gphi_dot(dw, ds))
+        if filter_mode:
+            acc0, ft0 = accept_fn(a_p, dw, ds, gphi_dot(dw, ds))
+        else:
+            acc0 = ls_trial(a_p, dw, ds)
+            ft0 = torch.ones_like(acc0)
         need_kd = ~(acc0 & ft0)
         kd0 = _cond_any(need_kd & live,
                         lambda: kkt_decrease(a_p, dw, ds, dlam, dzl, dzu,
@@ -715,7 +815,11 @@ def make_ipm_solver(
             a_p2, a_d2 = fraction_to_boundary(w, s, dw2, ds2, zl, zu, dzl2,
                                               dzu2, mu_new)
             kd2 = kkt_decrease(a_p2, dw2, ds2, dlam2, dzl2, dzu2, a_d2)
-            acc2, ft2 = accept_fn(a_p2, dw2, ds2, gphi_dot(dw2, ds2))
+            if filter_mode:
+                acc2, ft2 = accept_fn(a_p2, dw2, ds2, gphi_dot(dw2, ds2))
+            else:
+                acc2 = ls_trial(a_p2, dw2, ds2)
+                ft2 = torch.ones_like(acc2)
             return (acc2 | kd2, ft2 | kd2, dw2, ds2, dlam2, dzl2, dzu2,
                     a_p2, a_d2)
 
@@ -736,6 +840,11 @@ def make_ipm_solver(
         dzl, dzu = pick(dzl, dzl2), pick(dzu, dzu2)
         a_p, a_d = pick(a_p, a_p2), pick(a_d, a_d2)
         f_type = pick(f_type, soc_ft)
+
+        if not filter_mode:
+            return merit_update(stt, p, mu_new, a_p, a_d, ok_full | use_soc,
+                                dw, ds, lam_b, dlam, dzl, dzu, delta_used,
+                                ls_trial, live, filt_th0, filt_ph0, filt_n0)
 
         # filter backtracking line search, seeded with the full-step
         # decision: accepted elements take zero trips, and it runs while
@@ -817,7 +926,7 @@ def make_ipm_solver(
         # select-gated, not multiplicative: 0 * NaN = NaN
         w_n = _sel(use_resto, w_n + _c(al_r) * dwr, w_n)
         s_n = _sel(use_resto, s_n + _c(al_r) * dsr, s_n)
-        lam_n = lam + _c(alpha) * dlam
+        lam_n = lam_b + _c(alpha) * dlam
         eff_ad = torch.where(use_resto, a_dr, a_d)
         zl_n = zl + _c(eff_ad) * _sel(use_resto, dzlr, dzl)
         zu_n = zu + _c(eff_ad) * _sel(use_resto, dzur, dzu)
@@ -838,8 +947,79 @@ def make_ipm_solver(
             ls_failed, torch.clamp(delta_used, min=1e-6) * 10.0,
             torch.where(alpha > 0.3, delta_used / 3.0, delta_used))
         prox_n = torch.clamp(prox_n, 0.0, st.prox_max)
+        if st.debug:
+            debug_iteration(stt, p, mu_new, res0, pre, alpha, a_d, nu, dlam,
+                            w, s, dw, ds)
         return (w_n, s_n, lam_n, zl_c, zu_c, mu_new, prox_n, filt_th1,
                 filt_ph1, filt_n1)
+
+    def merit_update(stt, p, mu_new, a_p, a_d, done, dw, ds, lam_b, dlam,
+                     dzl, dzu, delta_used, ls_trial, live, filt_th0,
+                     filt_ph0, filt_n0):
+        """The rest of a ``globalization="merit"`` iteration: backtracking
+        on the l1 merit (seeded with the full-step decision ``done``), no
+        restoration, and the Levenberg adaptation of the legacy rule."""
+        w, s, zl, zu = stt.w, stt.s, stt.zl, stt.zu
+        alpha = a_p
+        k = torch.zeros_like(stt.it)
+        while True:
+            go = ~done & (k < st.ls_max)
+            if not bool((go & live).any()):
+                break
+            a_try = alpha * 0.5
+            ok_t = ls_trial(a_try, dw, ds)
+            alpha = torch.where(go, a_try, alpha)
+            done = done | (go & ok_t)
+            k = k + go
+        # a failed search takes a tiny step (keeps progress in the batch)
+        alpha = torch.where(done, alpha, a_p * 0.5 ** st.ls_max)
+        w_n = w + _c(alpha) * dw
+        s_n = s + _c(alpha) * ds
+        lam_n = lam_b + _c(alpha) * dlam
+        zl_c, zu_c = clip_duals(w_n, s_n, zl + _c(a_d) * dzl,
+                                zu + _c(a_d) * dzu, mu_new)
+        # small accepted steps -> more damping; good steps -> less
+        prox_n = torch.where(
+            alpha < 0.1, torch.clamp(delta_used * 10.0, min=1e-8),
+            torch.where(alpha > 0.9, delta_used / 5.0, delta_used))
+        prox_n = torch.clamp(prox_n, 0.0, st.prox_max)
+        if st.debug:
+            nu = torch.clamp(2.0 * _maxabs(lam_b + dlam), min=1.0)
+            debug_iteration(stt, p, mu_new, None, None, alpha, a_d, nu,
+                            dlam, w, s, dw, ds)
+        return (w_n, s_n, lam_n, zl_c, zu_c, mu_new, prox_n, filt_th0,
+                filt_ph0, filt_n0)
+
+    def debug_iteration(stt, p, mu_new, res0, pre, alpha, a_d, nu, dlam,
+                        w, s, dw, ds):
+        """``IPMSettings.debug``: the step's blocking bound and the
+        iteration's summary line."""
+        tau = _c(torch.clamp(1.0 - mu_new, min=st.tau_min))
+        dlw, dls = dist_l(w, s)
+        duw = dist_u(w)
+        rat = torch.minimum(
+            torch.where(has_lb & (dw < 0),
+                        -tau * dlw / torch.where(dw == 0, -1.0, dw), inf),
+            torch.where(has_ub & (dw > 0),
+                        tau * duw / torch.where(dw == 0, 1.0, dw), inf))
+        blk = rat.argmin(-1)
+        pick = (lambda x: x.gather(-1, blk[:, None])[:, 0])
+        s_rat = (torch.where(ds < 0, -tau * dls / torch.where(
+            ds == 0, -1.0, ds), inf).amin(-1) if q else inf)
+        _debug("   blocker: w[{b}] rat={r:.2e} dw={dwb:.2e} dl={dlb:.2e} "
+               "du={dub:.2e} s_min_rat={sr:.2e}", b=blk, r=pick(rat),
+               dwb=pick(dw), dlb=pick(dlw), dub=pick(duw), sr=s_rat)
+        if pre is None:
+            pre = point_evals(w, stt.lam, p)
+            res0 = kkt_residuals(w, s, stt.lam, stt.zl, stt.zu, p, pre=pre)
+        _debug("it={it} mu={mu:.1e} err0={e0:.2e} errmu={em:.2e} d={ed:.1e} "
+               "p={ep:.1e} phi={ph:.8e} th={th:.2e} alpha={a:.2e} "
+               "a_d={ad:.2e} nu={nu:.1e} |dlam|={dl:.1e} |lam|={l:.1e} "
+               "prox={px:.1e}", it=stt.it, mu=mu_new,
+               e0=err_from(res0, 0.0), em=err_from(res0, stt.mu),
+               ed=res0[0], ep=res0[1], ph=barrier_value(w, s, p, mu_new),
+               th=constraint_violation(pre[1], pre[2], s), a=alpha, ad=a_d,
+               nu=nu, dl=_maxabs(dlam), l=_maxabs(stt.lam), px=stt.prox)
 
     def body(stt, p, active, etol):
         """One loop pass; the caller keeps its results for ``active``
@@ -911,12 +1091,12 @@ def make_ipm_solver(
         with _range("ipm.evals"):
             pre = point_evals(w, lam, p)
         with _range("ipm.newton"):
-            (dw, ds, dlam, dzl, dzu, _soc, _delta, _resto) = newton_step(
-                w, s, lam, zl, zu, p, mu,
-                torch.clamp(stt.prox, min=st.rti_prox), pre, live)
+            (dw, ds, dlam, dzl, dzu, _soc, _delta, dlam_pre,
+             _resto) = newton_step(w, s, lam, zl, zu, p, mu,
+                                   torch.clamp(stt.prox, min=st.rti_prox),
+                                   pre, live)
         solve.newton_steps += 1
-        # (the JAX step first adds dual_refit's multiplier correction,
-        # which is zero unless dual_refit is on; that is not ported)
+        lam = lam + dlam_pre
         a_p, a_d = fraction_to_boundary(w, s, dw, ds, zl, zu, dzl, dzu, mu)
         # trust-region cap: scale the whole primal-dual update uniformly
         cap = torch.clamp(st.rti_step_max / (_maxabs(dw) + 1e-12), max=1.0)
@@ -1021,6 +1201,43 @@ def make_ipm_solver(
             th_max=1e4 * torch.clamp(theta0, min=1.0),
             th_min=1e-4 * torch.clamp(theta0, min=1.0))
 
+    def estimate_duals(w, s, zl, zu, p, mu):
+        """Least-squares multipliers for a cold solve (``cold_dual_init``,
+        IPOPT's least_square_init_duals analogue): one proximal-weighted
+        KKT solve at lam = 0.  An estimate that is not finite or exceeds
+        ``lam_init_max`` falls back to lam = 0, element by element."""
+        B = w.shape[0]
+        dl_w, dl_s = dist_l(w, s)
+        dl_w = torch.clamp(dl_w, min=_TINY)
+        du_w = torch.clamp(dist_u(w), min=_TINY)
+        dl_s = torch.clamp(dl_s, min=_TINY)
+        sig_w = torch.where(has_lb, zl[:, :n] / dl_w, 0.0) \
+            + torch.where(has_ub, zu[:, :n] / du_w, 0.0)
+        inv_sig_s = dl_s / torch.clamp(zl[:, n:], min=_TINY) if q \
+            else empty(w)
+        r_dw = grad_f(w, p) - torch.where(has_lb, _c(mu) / dl_w, 0.0) \
+            + torch.where(has_ub, _c(mu) / du_w, 0.0)
+        r_h_ls = (_c(mu) / dl_s) * inv_sig_s if q else empty(w)
+        zero_g, zero_h = w.new_zeros((B, m)), w.new_zeros((B, q))
+        delta = T(st.refit_delta).expand(B)
+        if structured_solve is not None:
+            ctx = structured_solve[0](w, p, zero_g, zero_h, sig_w, inv_sig_s)
+            _, dg, dh = structured_solve[1](ctx, r_dw, zero_g, r_h_ls, delta)
+        else:
+            Jg = jac_g(w, p) if m else w.new_zeros((B, 0, n))
+            Jh = jac_h(w, p) if q else w.new_zeros((B, 0, n))
+            _, dg, dh = solve_kkt(hess_fn(w, p, zero_g, zero_h), sig_w, Jg,
+                                  Jh, inv_sig_s, r_dw, zero_g, r_h_ls, delta)
+        lam_ls = torch.cat([dg, dh], -1)
+        # a garbage estimate from a degenerate start must not be worse than
+        # the plain lam = 0 start
+        ok = _all_finite(lam_ls) & (_maxabs(lam_ls) < st.lam_init_max)
+        if st.debug:
+            _debug("  estimate_duals: raw|lam|={l:.2e} finite={f} "
+                   "|r_dw|={r:.2e}", l=_maxabs(lam_ls),
+                   f=_all_finite(lam_ls), r=_maxabs(r_dw))
+        return _sel(ok, lam_ls, torch.zeros_like(lam_ls))
+
     # -- active-set Newton polish ------------------------------------------
     # A few full Newton steps with the active set FIXED (active bounds
     # pinned by a large quadratic penalty, inactive inequality multipliers
@@ -1113,6 +1330,19 @@ def make_ipm_solver(
 
     def solve_batch(w0, p, lam0, mu0, zl0, zu0):
         state = init_state(w0, p, lam0=lam0, mu0=mu0, zl0=zl0, zu0=zu0)
+        if st.cold_dual_init and (m + q) and st.rti_iters == 0:
+            # cold elements (lam all zero) start from the least-squares
+            # multipliers; warm ones keep theirs
+            cold = _maxabs(state.lam) == 0.0
+            lam_ls = _cond_any(cold, lambda: estimate_duals(
+                state.w, state.s, state.zl, state.zu, p, state.mu),
+                torch.zeros_like(state.lam))
+            lam_n = _sel(cold, lam_ls, state.lam)
+            if st.debug:
+                _debug("cold_dual_init: pred={p} |lam_ls|={l:.2e}", p=cold,
+                       l=_maxabs(lam_ls))
+            state = state._replace(lam=lam_n, best=(
+                state.w, state.s, lam_n, state.zl, state.zu))
         # RTI needs a warm primal-dual start: a cold call (no lam0) runs
         # the full globalized loop
         if st.rti_iters > 0 and lam0 is not None:
@@ -1141,6 +1371,9 @@ def make_ipm_solver(
         with _range("ipm.polish"):
             pol = polish(*start, p)
         err_pol = kkt_error(*pol, p, 0.0)
+        if st.debug:
+            _debug("polish: err_ipm={a:.2e} err_pol={b:.2e}", a=err_ipm,
+                   b=err_pol)
         better = torch.isfinite(err_pol) & (err_pol < err_ipm)
         w_f, s_f, lam_f, zl_f, zu_f = _select(better, start, pol)
         err_f = torch.where(better, err_pol, err_ipm)
@@ -1149,12 +1382,31 @@ def make_ipm_solver(
             kkt_err=err_f, iterations=final.it,
             success=strict | (err_f <= st.tol))
 
-    def solve(w0, p, lam0=None, mu0=None, zl0=None, zu0=None):
+    def solve(w0, p, lam0=None, mu0=None, zl0=None, zu0=None, lb_dyn=None,
+              ub_dyn=None):
         def to(x):
             return None if x is None else torch.as_tensor(
                 x, dtype=dtype, device=device)
-        w0, p, lam0, zl0, zu0 = map(to, (w0, p, lam0, zl0, zu0))
-        return solve_batch(w0, p, lam0, mu0, zl0, zu0)
+        w0, p, lam0, zl0, zu0, lb_dyn, ub_dyn = map(
+            to, (w0, p, lam0, zl0, zu0, lb_dyn, ub_dyn))
+        if lb_dyn is None and ub_dyn is None:
+            return solve_batch(w0, p, lam0, mu0, zl0, zu0)
+        if not dynamic_bounds:
+            raise ValueError("pass dynamic_bounds=True to make_ipm_solver "
+                             "to use lb_dyn/ub_dyn")
+        # a solver over these bound values, with the static finiteness
+        # masks: every reader of the bounds (distances, the interior push,
+        # the clips, fraction to boundary) takes the per-element values
+        inner = make_ipm_solver(
+            f, g, h, lb if lb_dyn is None else torch.where(has_lb, lb_dyn, lb),
+            ub if ub_dyn is None else torch.where(has_ub, ub_dyn, ub),
+            n_eq, n_ineq, settings=settings, kkt_solve=kkt_solve,
+            hess_fn=hess_fn, grad_f_fn=grad_f_fn, jac_g_fn=jac_g_fn,
+            jac_h_fn=jac_h_fn, structured_solve=structured_solve,
+            dtype=dtype, device=device, _bound_masks=(has_lb, has_ub))
+        out = inner(w0, p, lam0, mu0, zl0, zu0)
+        solve.newton_steps += inner.newton_steps
+        return out
 
     solve.newton_steps = 0
     return solve

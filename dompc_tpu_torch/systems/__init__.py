@@ -2,8 +2,10 @@
 NMPC, built through the same public API as the JAX package's
 ``__graft_entry__._build_cstr_mpc``, and copies of the JAX package's
 systems: oscillating masses, the CSTR model, MPC and simulator, the
-batch reactor, Lotka-Volterra, the triple tank, the rotating masses of the
-coupled MHE + MPC loop, and the double inverted pendulum (a DAE)."""
+batch reactor, Lotka-Volterra (continuous, and with an integer input), the
+triple tank, the rotating masses of the coupled MHE + MPC loop, the double
+inverted pendulum (a DAE), the kite, the kinematic and dynamic bicycles
+and the industrial polymerization reactor."""
 import numpy as np
 
 from ._classic import (oscillating_masses_model,  # noqa: F401
@@ -17,6 +19,16 @@ from ._rotating_masses import (rotating_masses_model,  # noqa: F401
                                rotating_masses_mpc,
                                rotating_masses_simulator,
                                rotating_masses_mhe)
+from ._lotka_volterra import (lotka_volterra_model_integer,  # noqa: F401
+                              lotka_volterra_mpc)
+from ._kite import kite_model, kite_mpc, kite_simulator  # noqa: F401
+from ._bicycle import (kinematic_bicycle_model,  # noqa: F401
+                       kinematic_bicycle_mpc, kinematic_bicycle_simulator,
+                       dynamic_bicycle_model, dynamic_bicycle_mpc,
+                       dynamic_bicycle_simulator)
+from ._industrial_poly import (industrial_poly_model,  # noqa: F401
+                               industrial_poly_mpc,
+                               industrial_poly_simulator, industrial_poly_x0)
 
 
 def cstr_robust_mpc(n_horizon=20, n_robust=1, kkt_solver="auto",

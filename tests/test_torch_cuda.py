@@ -255,3 +255,26 @@ def test_bbd_solve_long_chain_takes_spike_on_card(monkeypatch, dtype):
         sols.append(xc)
     assert float((sols[0] - sols[1]).abs().max()) < (
         1e-4 if dt == torch.float32 else 1e-12)
+
+
+@pytest.mark.cuda
+def test_bbd_solve_wide_band_takes_plain_route_on_card():
+    """b = 100 exceeds the widest row bucket (97): bbd_solve takes the plain
+    sweep on the card, decided from the shape (no kernel launch, one plain
+    route counted), and equals the CPU solve."""
+    from dompc_tpu_torch.solver.bbd import bbd_solve
+    _needs_card()
+    D, U, Lo, rhs = _case(2, 6, 100, 2, seed=100, dtype=torch.float64)
+    Bord, rhs_c = rhs[..., :1], rhs[..., 1]
+    Root = torch.full((1, 1), 10.0, dtype=torch.float64, device="cuda")
+    rhs_r = torch.ones(1, dtype=torch.float64, device="cuda")
+    before = (band_qr.band_solve.launches, bbd_solve.plain_routes)
+    with pytest.warns(UserWarning, match="widest row bucket"):
+        xc, xr = bbd_solve(D, U, Lo, Bord, Root, rhs_c, rhs_r)
+    torch.cuda.synchronize()
+    assert band_qr.band_solve.launches == before[0]
+    assert bbd_solve.plain_routes == before[1] + 1
+    xc_ref, xr_ref = bbd_solve(*[a.cpu() for a in (D, U, Lo, Bord, Root,
+                                                   rhs_c, rhs_r)])
+    assert float((xc.cpu() - xc_ref).abs().max()) < 1e-12
+    assert float((xr.cpu() - xr_ref).abs().max()) < 1e-12

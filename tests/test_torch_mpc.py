@@ -7,7 +7,8 @@
   (BASELINE.md:15) at the same iteration count;
 * the package's import boundary: no ``jax`` and no ``dompc_tpu`` anywhere in
   ``dompc_tpu_torch``;
-* the settings the port refuses, and the device and dtype rules.
+* every IPM setting builds and solves a toy problem, and the device and
+  dtype rules.
 """
 import ast
 import subprocess
@@ -175,20 +176,23 @@ def test_ipm_solver_device_and_dtype_rules(monkeypatch):
     ("dual_refit", True), ("n_refine_kkt", 1), ("tol_loop", 1e-5),
     ("dynamic_bounds", True)])
 def test_unported_settings_raise(setting):
-    """The settings still unported raise; ``rti_iters`` and ``tol_loop``
-    (ported with the RTI modes, tests/test_torch_rti.py) build."""
+    """The settings that once raised (none is unported now) build and solve
+    the toy problem min sum(w) on [0, 1]^2; each is held to the JAX solver
+    in tests/test_torch_ipm_options.py and tests/test_torch_rti.py.
+    ``dynamic_bounds`` solves it with the lower bounds raised per call."""
     name, value = setting
-    kw, st = {}, IPMSettings()
+    kw, st, call = {}, IPMSettings(), {}
+    target = np.zeros((1, 2))
     if name == "dynamic_bounds":
         kw[name] = value
+        target = np.full((1, 2), 0.25)
+        call = dict(lb_dyn=target)
     else:
         st = IPMSettings(**{name: value})
-
-    def build():
-        make_ipm_solver(lambda w, p: w.sum(-1), None, None, np.zeros(2),
-                        np.ones(2), 0, 0, settings=st, **kw)
-    if name in ("rti_iters", "tol_loop"):
-        build()
-        return
-    with pytest.raises(NotImplementedError):
-        build()
+    solve = make_ipm_solver(lambda w, p: w.sum(-1), None, None, np.zeros(2),
+                            np.ones(2), 0, 0, settings=st,
+                            dtype=torch.float64, device="cpu", **kw)
+    sol = solve(torch.full((1, 2), 0.5, dtype=torch.float64),
+                torch.zeros(1, 0), **call)
+    assert bool(sol.success.all())
+    assert float(np.abs(sol.w.numpy() - target).max()) < 1e-6

@@ -9,6 +9,11 @@ Float64 to 1e-12 relative (both are Householder-QR sweeps, so they differ
 by rounding only); float32 to 1e-5 relative after the two refinement
 passes on both sides.  The kernel-SPIKE checks need the card:
 ``tests/test_torch_cuda.py``.
+
+Bands wider than the kernels' widest row bucket (b > 97) take the plain
+sweep on the card, as JAX routes chains past its fit rule: the route is
+decided from the shape (:func:`bbd.chain_sweep`, checked here without a
+card) and such a chain equals JAX's sweep to 1e-12.
 """
 import numpy as np
 import pytest
@@ -16,10 +21,12 @@ import jax.numpy as jnp
 import torch
 
 from dompc_tpu.solver.bbd import bbd_solve as jax_bbd_solve
+from dompc_tpu.solver.bbd import band_solve_qr_multi as jax_band_qr
 from dompc_tpu.solver.batchqr import (
     band_solve_spike_impl as jax_spike)
 from dompc_tpu_torch.solver import band_qr, batchqr
-from dompc_tpu_torch.solver.bbd import bbd_solve, bbd_matvec, band_matvec
+from dompc_tpu_torch.solver.bbd import (bbd_solve, bbd_matvec, band_matvec,
+                                        chain_sweep)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -135,3 +142,43 @@ def test_spike_default_sweep_and_degenerate_partition(monkeypatch):
     got = batchqr.band_solve_spike_impl(*arrays, 6)     # S < 2P - 1
     assert calls == [(1, 9, 3, 1)]
     assert torch.equal(got, ref)
+
+
+def test_wide_band_chain_matches_jax():
+    """A (2, 6, 100, 2) chain (b = 100, past row bucket 97): the port's
+    sweep and ``bbd_solve`` (one border column) equal JAX's
+    ``band_solve_qr_multi`` and ``bbd_solve`` in float64."""
+    import jax
+    D, U, Lo, rhs = _chain_case(2, 6, 100, 2, seed=100)
+    ref = np.asarray(jax.vmap(jax_band_qr)(*[jnp.asarray(a)
+                                             for a in (D, U, Lo, rhs)]))
+    got = band_qr.band_solve(*[torch.as_tensor(a) for a in (D, U, Lo, rhs)])
+    assert _rel(got.numpy(), ref) <= 1e-12
+    arrays = _bbd_case(2, 6, 100, 1, seed=101)
+    xc_j, xr_j = jax_bbd_solve(*[jnp.asarray(a) for a in arrays])
+    xc, xr = bbd_solve(*[torch.as_tensor(a) for a in arrays])
+    assert _rel(xc.numpy(), xc_j) <= 1e-12
+    assert _rel(xr.numpy(), xr_j) <= 1e-12
+
+
+def test_chain_sweep_routes_wide_bands_past_the_kernels():
+    """The route is decided from the shape, before any launch: on the card
+    b <= 97 takes the kernels (tiled before SPIKE), b > 97 the plain sweep,
+    whole or inside SPIKE; on the CPU every band takes band_solve (its
+    plain version there), as before."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert chain_sweep(97, cuda, "pallas", 0) == (band_qr.band_solve, False)
+    assert chain_sweep(97, cuda, "pallas_tiled", 0) == (
+        band_qr.band_solve_tiled, False)
+    assert chain_sweep(98, cuda, "pallas", 0) == (
+        band_qr.band_solve_qr_multi, True)
+    assert chain_sweep(98, cuda, "pallas_tiled", 0) == (
+        band_qr.band_solve_qr_multi, True)
+    assert chain_sweep(98, cpu, "pallas", 0) == (band_qr.band_solve, False)
+    assert chain_sweep(98, cpu, "pallas", 6) == (band_qr.band_solve, False)
+    # a partitioned wide chain: SPIKE over the plain sweep
+    sweep, plain = chain_sweep(98, cuda, "pallas", 6)
+    assert plain
+    arrays = [torch.as_tensor(a) for a in _chain_case(1, 50, 3, 2, seed=9)]
+    assert _rel(sweep(*arrays).numpy(),
+                band_qr.band_solve_qr_multi(*arrays).numpy()) < 1e-12
