@@ -112,15 +112,45 @@ Phases, each fatal on failure (non-zero exit, no result line):
    variables; a cold step and a warm one from its own prediction of the
    next state), step 0's u0 against the port on the CPU to 1e-8 at equal
    iterations.  The CPU yardstick of 13-14 runs in a subprocess of its
-   own beside phases 11-13.
+   own beside phases 11-13;
+15. approximate MPC and the NLP differentiator
+   (examples/CSTR_approximate_mpc/main.py,
+   examples/batch_reactor_differentiator/main.py): (a) float32 (a
+   subprocess beside phases 11-13), the flagship with T_R's upper bound
+   140 set after setup and set up again;
+   AMPCSampler.sample_open_loop_batched over the example's state box (the
+   first 512 of its 1024 states, seed 0, batches of 128, tol 1e-4, 60
+   iterations): every
+   u finite and inside the input bounds, one band_qr launch per sweep of
+   every KKT solve and never the tiled kernel, the first call's first 48
+   sweeps held to the plain version by backward error (residuals and
+   forward errors recorded), the success rate recorded; in float64 (the
+   same subprocess) the first 128 states again, where the success gate of
+   tests/test_satellites.py:102 (>= 0.9, a float64 test) applies, and on
+   the states both certified the float32 F within F_AGREE of the
+   float64; (b) the policy (ApproxMPC, Trainer: 400 epochs, batches of
+   32, lr 3e-3) trained on the card on the certified samples, its first
+   10 epochs' losses against the port on the CPU from the same weights
+   (1e-3 relative), the last loss below the first; (c) the policy in
+   closed loop from CSTR_X0 with u_prev = [5, 0] against cstr_simulator
+   (float64) for 5 steps, u finite and in bounds, and the policy on all
+   sampled states in one call against their MPC inputs (recorded);
+   (d) float64 (the zoo subprocess): du0/dx0 of the oscillating masses,
+   free and with the active nl_cons, against central finite differences
+   of fresh solves on the card (tests/test_satellites.py:50-173: 5e-4,
+   1e-4, du0/dx0 = 0 to 1e-6 with LICQ), and the flagship's du0/dx0
+   after one step, its active sets and du0/dx0 against the port on the
+   CPU (the 13-14 yardstick's subprocess) to 1e-8, with the size of the
+   dense sensitivity system and the ms of its assembly and solve.
 
 Every kernel counter is set to 0 just before each path and read just
 after.  Phases 2-10 run one after another; from phase 11 on, the two
 cold DIP solves run beside each other, the CPU yardstick of phase 11,
 phase 14's float64 subprocess and the CPU yardstick of 13-14, and each
 DIP child then goes on alone but for those last two; phase 13's float64
-subprocess runs after the DIP.  Each heading carries the seconds since the
-start.  The last stdout line is {"ok": true, "device": {...}}; the line
+subprocess runs after the DIP.  Phase 15 runs in a subprocess of its own
+beside phases 11-13, but for the differentiator, which runs in phase 14's
+float64 subprocess.  Each heading carries the seconds since the start.  The last stdout line is {"ok": true, "device": {...}}; the line
 before it lists the kernels, and the one before that names the card and
 its power limit.  Needs CUDA; exits non-zero without it.
 """
@@ -412,14 +442,16 @@ def drive_main_path(n_steps, f32_settings, record=False):
 
 
 @contextlib.contextmanager
-def recording(name, recorded, on=True):
+def recording(name, recorded, on=True, limit=None):
     """While on, keep a copy (on the card) of the inputs of every call of
-    ``band_qr.<name>``, which the KKT backend looks up at each call."""
+    ``band_qr.<name>`` (of the first ``limit`` calls), which the KKT backend
+    looks up at each call."""
     from dompc_tpu_torch.solver import band_qr
     real = getattr(band_qr, name)
 
     def rec(D, U, Lo, rhs, *a, **kw):
-        recorded.append([x.clone() for x in (D, U, Lo, rhs)])
+        if limit is None or len(recorded) < limit:
+            recorded.append([x.clone() for x in (D, U, Lo, rhs)])
         return real(D, U, Lo, rhs, *a, **kw)
 
     if on:
@@ -1350,11 +1382,12 @@ def spike_watch(record=False):
                   backend="pallas"):
         n_parts, n_ref = bbd._spike_parts(Bord.shape[-3], D.dtype, backend,
                                           n_refine)
-        n0 = band_qr.band_solve.launches
+        # the real wrapper's counter: recording() may rebind the name
+        n0 = band_qr._band_solve.launches
         res = real_bbd(D, U, Lo, Bord, Root, *rest, n_refine=n_refine,
                        backend=backend)
         out["solves"].append(dict(
-            launches=band_qr.band_solve.launches - n0, n_parts=n_parts,
+            launches=band_qr._band_solve.launches - n0, n_parts=n_parts,
             n_refine=n_ref, want=(2 if n_parts else 1) * (1 + n_ref),
             chain=list(D.shape[-4:-1]) + [Bord.shape[-1]]))
         return res
@@ -2117,11 +2150,22 @@ def zoo_loop(name):
 
 
 def zoo_f64():
-    """Child process (DOMPC_TPU_X64=1): phase 14's float64 runs on the
-    card (their CPU yardstick runs in a process of its own)."""
+    """Child process (DOMPC_TPU_X64=1): phase 14's float64 runs and phase
+    15d (the differentiator) on the card (their CPU yardstick runs in a
+    process of its own)."""
     check(os.environ.get("DOMPC_TPU_X64") == "1", "child needs X64")
     rec = {"merit": flagship_merit_step()}
     print("flagship_merit " + json.dumps(rec["merit"]), flush=True)
+    # 15d: the differentiator, float64 on the card
+    masses = differentiator_masses()
+    print("differentiator_masses " + json.dumps(masses), flush=True)
+    flag = differentiator_flagship()
+    print("differentiator_flagship " + json.dumps(
+        {k: v for k, v in flag.items() if k != "active"}), flush=True)
+    check(all(r["device"].startswith("cuda") for r in masses.values())
+          and flag["device"].startswith("cuda"),
+          "the differentiator did not run on the card")
+    rec["differentiator"] = dict(masses=masses, flagship=flag)
     for name in ("kinematic_bicycle", "kite"):
         run = zoo_loop(name)
         print(f"zoo_{name} " + json.dumps(run), flush=True)
@@ -2154,9 +2198,9 @@ def zoo_f64():
 
 def zoo_cpu():
     """Child process (DOMPC_TPU_PLATFORM=cpu, DOMPC_TPU_X64=1): the
-    yardstick of phases 13-14, the port on the CPU: Lotka-Volterra's
-    closed loop, the flagship's merit step and the polymerization's step
-    0.  It runs beside phases 11-14 on the card."""
+    yardstick of phases 13-15, the port on the CPU: Lotka-Volterra's
+    closed loop, the flagship's merit step, the polymerization's step 0 and
+    the flagship's du0/dx0.  It runs beside phases 11-14 on the card."""
     import torch
     torch.set_num_threads(2)
     t0 = time.perf_counter()
@@ -2170,7 +2214,11 @@ def zoo_cpu():
     t0 = time.perf_counter()
     poly = poly_steps(1)
     poly["s"] = time.perf_counter() - t0
-    print("ZOOCPU_RESULT " + json.dumps(dict(lv=lv, merit=merit, poly=poly)),
+    t0 = time.perf_counter()
+    diff = differentiator_flagship()
+    diff["s"] = time.perf_counter() - t0
+    print("ZOOCPU_RESULT " + json.dumps(dict(lv=lv, merit=merit, poly=poly,
+                                             differentiator=diff)),
           flush=True)
 
 
@@ -2256,11 +2304,482 @@ def zoo_card_vs_cpu(minlp, zoo, cpu):
     return rec
 
 
+# --------------------------------------------------------------------------
+# phase 15: approximate MPC (sampling, training, the policy in closed loop)
+# and the NLP differentiator
+# --------------------------------------------------------------------------
+
+AMPC_PLAN = 1024       # states of the example's plan (seed 0)
+AMPC_SAMPLES = 512     # of them sampled in float32 (cut from 1024 for time)
+AMPC_BATCH = 128       # states per batched solve
+AMPC_F64_SAMPLES = 128  # the first states sampled in float64 too
+AMPC_CHECKED = 48      # the first call's first sweeps held to the plain one
+AMPC_LBX = [0.2, 0.2, 100.0, 100.0]   # the example's state box
+AMPC_UBX = [1.8, 1.8, 138.0, 138.0]
+AMPC_EPOCHS = 400      # the example's training settings (main.py:52-54)
+AMPC_CPU_EPOCHS = 10   # epochs of the CPU yardstick of the training
+AMPC_LOOP = 5          # policy closed-loop steps (the example's default)
+CSTR_LB_U = np.array([5.0, -8500.0])
+CSTR_UB_U = np.array([100.0, 0.0])
+
+
+@contextlib.contextmanager
+def batch_call_watch(record=0):
+    """Wrap ``parallel.make_batch_solver`` (the sampler imports it at each
+    call) so that every batched call is timed (synchronized), its Newton
+    steps, band launches and KKT solves counted, and the first ``record``
+    band sweeps of the first call kept for :func:`check_recorded`."""
+    import torch
+    from dompc_tpu_torch import parallel
+    from dompc_tpu_torch.solver import band_qr
+    real = parallel.make_batch_solver
+    out = dict(calls=[], recorded=[])
+
+    def make(mpc, *a, **kw):
+        solve = real(mpc, *a, **kw)
+
+        def timed(x0s, w0s, *rest):
+            first = bool(record) and not out["calls"]
+            n0, l0, t0 = (solve.ipm.newton_steps, band_qr.band_solve.launches,
+                          band_qr.band_solve_tiled.launches)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with spike_watch() as watch, \
+                    recording("band_solve", out["recorded"], first,
+                              limit=record):
+                sol, u0 = solve(x0s, w0s, *rest)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            it = sol.iterations.cpu().numpy()
+            solves = watch["solves"]
+            out["calls"].append(dict(
+                B=int(x0s.shape[0]), wall_s=wall, recorded=first,
+                newton_steps=solve.ipm.newton_steps - n0,
+                launches=band_qr.band_solve.launches - l0,
+                tiled_launches=band_qr.band_solve_tiled.launches - t0,
+                kkt_solves=len(solves),
+                kkt_launches=sum(v["launches"] for v in solves),
+                kkt_solves_off_count=sum(v["launches"] != v["want"]
+                                         for v in solves),
+                iters_mean=float(it.mean()), iters_max=int(it.max()),
+                success=int(sol.success.sum())))
+            return sol, u0
+
+        timed.ipm = solve.ipm
+        return timed
+
+    parallel.make_batch_solver = make
+    try:
+        yield out
+    finally:
+        parallel.make_batch_solver = real
+
+
+def ampc_mpc():
+    """The flagship with T_R's upper bound 140 set after setup and set up
+    again (examples/CSTR_approximate_mpc/main.py:34-35), on the device and
+    in the dtype of the environment."""
+    from dompc_tpu_torch.systems import cstr_robust_mpc
+    mpc = cstr_robust_mpc(n_horizon=20, n_robust=1)
+    mpc.bounds["upper", "_x", "T_R"] = 140.0
+    mpc.setup()
+    check(mpc._device.type == "cuda",
+          f"approximate-MPC flagship on {mpc._device}")
+    check(bool(np.isin(1.4, mpc._ub_opt_x)),
+          "the second setup did not take T_R's upper bound")
+    return mpc
+
+
+def ampc_sample(mpc, n, record):
+    """The first ``n`` states of the example's plan (AMPC_PLAN states
+    drawn with seed 0 from the AMPC_LBX..AMPC_UBX box) solved with
+    ``AMPCSampler.sample_open_loop_batched`` in batches of AMPC_BATCH (tol
+    1e-4, 60 iterations, as the example), every batched call timed and
+    counted; with ``record`` the first call's first AMPC_CHECKED band
+    sweeps are held to the plain version.  Checks the inputs, the call count and one band_qr launch
+    per sweep of every KKT solve; returns (X, U_prev, U, OK, record)."""
+    import tempfile
+    from dompc_tpu_torch.solver import band_qr
+    from dompc_tpu_torch.approximateMPC import (AMPCSampler,
+                                                AMPCSamplerSettings)
+    dname = str(mpc._dtype).replace("torch.", "")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ampc_") as tmp:
+        sampler = AMPCSampler(mpc, AMPCSamplerSettings(
+            n_samples=AMPC_PLAN, data_dir=tmp))
+        plan = sampler.default_sampling_plan(seed=0, lbx=AMPC_LBX,
+                                             ubx=AMPC_UBX)[:n]
+        band_qr.band_solve.launches = 0
+        band_qr.band_solve_tiled.launches = 0
+        t1 = time.perf_counter()
+        with batch_call_watch(record=AMPC_CHECKED if record else 0) \
+                as watch:
+            X, U_prev, U, OK = sampler.sample_open_loop_batched(
+                plan, batch_size=AMPC_BATCH, tol=1e-4, max_iter=60)
+        wall = time.perf_counter() - t1
+        launches = band_qr.band_solve.launches
+        tiled = band_qr.band_solve_tiled.launches
+        sampler.save_dataset(X, U_prev, U, OK)
+    calls = watch["calls"]
+    newton = sum(c["newton_steps"] for c in calls)
+    kkt_solves = sum(c["kkt_solves"] for c in calls)
+    timed = [c["wall_s"] for c in calls if not c["recorded"]]
+    rec = dict(
+        dtype=dname, n_samples=n, batch=AMPC_BATCH, wall_s=wall,
+        calls=calls, success_rate=float(OK.mean()), launches=launches,
+        tiled_launches=tiled, newton_steps=newton, kkt_solves=kkt_solves,
+        launches_per_newton_step=launches / max(newton, 1),
+        kkt_solves_per_newton_step=kkt_solves / max(newton, 1),
+        s_per_call_unrecorded=timed,
+        samples_per_s=AMPC_BATCH * len(timed) / max(sum(timed), 1e-9),
+        u_min=U.min(0).tolist(), u_max=U.max(0).tolist())
+    print(f"ampc_sampling_{dname} " + json.dumps(rec), flush=True)
+    check(len(calls) == -(-n // AMPC_BATCH),
+          f"{dname} sampling made {len(calls)} batched calls")
+    check(np.isfinite(U).all() and (U >= CSTR_LB_U - 1e-6
+                                    * np.abs(CSTR_LB_U)).all()
+          and (U <= CSTR_UB_U + 1e-6).all(),
+          f"{dname} sampled inputs not finite or outside the input bounds: "
+          f"{rec['u_min']} .. {rec['u_max']}")
+    check(launches > 0 and tiled == 0,
+          f"{dname} sampling: band_qr {launches}, tiled {tiled} launches")
+    # each KKT solve sweeps its chains 1 + n_refine times (float32: once),
+    # one band_qr launch a sweep; the full-featured IPM's corrections
+    # (ladder rungs, SOC, polish) are KKT solves of their own
+    check(kkt_solves >= newton
+          and launches == sum(c["kkt_launches"] for c in calls)
+          and not any(c["kkt_solves_off_count"] for c in calls),
+          f"{dname} sampling: {launches} launches for {kkt_solves} KKT "
+          f"solves and {newton} Newton steps; KKT solves off the count: "
+          f"{[c['kkt_solves_off_count'] for c in calls]}")
+    if record:
+        # the full-featured IPM's ladder rungs meet float32 chains so
+        # ill-conditioned that the plain sweep's own error against the
+        # float64 solution reaches 70 times the solution (PERF.md §6, PR
+        # 8): as for SPIKE's segments, which sweep lands closer there is
+        # luck, so these sweeps are held by backward error alone (their
+        # residuals and errors are recorded)
+        rec["kkt"] = check_recorded(watch["recorded"], "band_qr",
+                                    band_qr.band_solve,
+                                    f"the first {dname} sampling call",
+                                    forward=False)
+    return X, U_prev, U, OK, rec
+
+
+def ampc_sampling_f64():
+    """Phase 15a, float64: the first AMPC_F64_SAMPLES states of the plan,
+    where tests/test_satellites.py:102's gate (success rate >= 0.9, a
+    float64 test) applies."""
+    os.environ["DOMPC_TPU_X64"] = "1"     # read at setup
+    try:
+        mpc = ampc_mpc()
+    finally:
+        os.environ.pop("DOMPC_TPU_X64")
+    X, U_prev, U, OK, rec = ampc_sample(mpc, AMPC_F64_SAMPLES, False)
+    check(OK.mean() >= 0.9, f"float64 sampling success rate {OK.mean():.3f}"
+                            " (gate 0.9, tests/test_satellites.py:102)")
+    rec.update(U=U.tolist(), OK=OK.astype(int).tolist())
+    return rec
+
+
+def ampc_f32_vs_f64(U32, OK32, rec64):
+    """Phase 15a's yardstick of the float32 sampling: on the states both
+    dtypes solved, certified in both, F within F_AGREE (both certify at a
+    scaled KKT error of 1e-4; Q_dot, the near-degenerate input, is held to
+    its bounds only)."""
+    n = len(rec64["OK"])
+    U64, OK64 = np.asarray(rec64["U"]), np.asarray(rec64["OK"], bool)
+    both = OK32[:n] & OK64
+    dev = np.abs(U32[:n, 0] - U64[:, 0]) / (1.0 + np.abs(U64[:, 0]))
+    rec = dict(states=n, certified_f32=int(OK32[:n].sum()),
+               certified_f64=int(OK64.sum()), certified_both=int(both.sum()),
+               f32_only=int((OK32[:n] & ~OK64).sum()),
+               F_dev_max=float(dev[both].max()) if both.any() else None)
+    print("ampc_f32_vs_f64 " + json.dumps(rec), flush=True)
+    check(both.any() and rec["F_dev_max"] <= F_AGREE,
+          f"float32 vs float64 sampling: {rec} (bound {F_AGREE})")
+    return rec
+
+
+def ampc_phase():
+    """Phase 15 (a-c), float32 in the main process: AMPC_SAMPLES states
+    sampled through the batched solver, the policy trained on the card (and
+    AMPC_CPU_EPOCHS epochs on the CPU port from the same weights), then run
+    in closed loop against cstr_simulator."""
+    import torch
+    from dompc_tpu_torch.systems import CSTR_X0, cstr_simulator
+    from dompc_tpu_torch.approximateMPC import (ApproxMPC, Trainer,
+                                                TrainerSettings)
+
+    t0 = time.perf_counter()
+    mpc = ampc_mpc()
+    check(mpc._dtype == torch.float32, f"phase 15 main in {mpc._dtype}")
+    out = dict(setup_twice_s=time.perf_counter() - t0)
+    # (a) sampling; the success rate is recorded here and gated in float64
+    X, U_prev, U, OK, out["sampling"] = ampc_sample(mpc, AMPC_SAMPLES, True)
+    out["U"], out["OK"] = U, OK
+
+    # (b) training, on the card and (AMPC_CPU_EPOCHS) on the CPU
+    Xo, Upo, Uo = X[OK], U_prev[OK], U[OK]
+    approx = ApproxMPC(mpc)
+    cpu = ApproxMPC(mpc)
+    cpu.net.load_state_dict(approx.net.state_dict())
+    cpu.net.to("cpu")
+    check(approx.device.type == "cuda" and cpu.device.type == "cpu",
+          f"policies on {approx.device} / {cpu.device}")
+
+    def settings(n_epochs):
+        return TrainerSettings(n_epochs=n_epochs, batch_size=32,
+                               learning_rate=3e-3, print_frequency=0)
+
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    hist = Trainer(approx, settings(AMPC_EPOCHS)).default_training(
+        Xo, Uo, U_prev=Upo, seed=0)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    steps = AMPC_EPOCHS * max(1, int(0.8 * len(Xo)) // 32)
+    t1 = time.perf_counter()
+    hist_cpu = Trainer(cpu, settings(AMPC_CPU_EPOCHS)).default_training(
+        Xo, Uo, U_prev=Upo, seed=0)
+    cpu_s = time.perf_counter() - t1
+    n = AMPC_CPU_EPOCHS
+    agree = {k: float(np.max(np.abs(np.subtract(hist[k][:n], hist_cpu[k]))
+                             / np.abs(hist_cpu[k])))
+             for k in ("train_loss", "val_loss")}
+    train = dict(n_train=int(0.8 * len(Xo)), epochs=AMPC_EPOCHS,
+                 steps=steps, wall_s=train_s,
+                 ms_per_step=train_s * 1e3 / steps,
+                 train_loss_first=hist["train_loss"][0],
+                 train_loss_last=hist["train_loss"][-1],
+                 val_loss_last=hist["val_loss"][-1],
+                 cpu_epochs=n, cpu_s=cpu_s, card_vs_cpu_rel=agree)
+    print("ampc_training " + json.dumps(train), flush=True)
+    check(hist["train_loss"][-1] < hist["train_loss"][0],
+          f"training loss did not fall: {train}")
+    check(max(agree.values()) <= 1e-3,
+          f"the first {n} epochs' losses, card vs CPU: {agree} (bound 1e-3)")
+    out["training"] = train
+
+    # (c) the policy in closed loop with the plant (float64 on the card),
+    # as the example runs it, and on every sampled state at once
+    os.environ["DOMPC_TPU_X64"] = "1"
+    try:
+        sim = cstr_simulator(mpc.model)
+    finally:
+        os.environ.pop("DOMPC_TPU_X64")
+    x = CSTR_X0.copy()
+    sim.x0 = x.copy()
+    u_prev = np.array([5.0, 0.0])
+    loop = {k: [] for k in ("policy_ms", "plant_ms", "u0", "x")}
+    for k in range(AMPC_LOOP):
+        t1 = time.perf_counter()
+        u0 = approx.make_step(x, u_prev=u_prev, clip_to_bounds=True)
+        loop["policy_ms"].append((time.perf_counter() - t1) * 1e3)
+        u = u0.reshape(-1)
+        check(np.isfinite(u).all() and (u >= CSTR_LB_U).all()
+              and (u <= CSTR_UB_U).all(),
+              f"policy step {k}: u {u} not finite or out of bounds")
+        t1 = time.perf_counter()
+        x = np.asarray(sim.make_step(u0)).reshape(-1)
+        loop["plant_ms"].append((time.perf_counter() - t1) * 1e3)
+        check(np.isfinite(x).all(), f"plant step {k}: x {x} not finite")
+        loop["u0"].append(u.tolist())
+        loop["x"].append(x.tolist())
+        u_prev = u
+    inp = torch.as_tensor(approx.scale_inputs(np.concatenate(
+        [X, U_prev], axis=1)), dtype=approx.dtype, device=approx.device)
+    with torch.no_grad():
+        batch_ms = cuda_ms(lambda: approx.net(inp), 20)
+        y = approx.net(inp).double().cpu().numpy()
+    err = np.abs(approx.rescale_outputs(y)[OK] - U[OK]) / approx.out_range
+    loop.update(policy_batch=len(X), policy_batch_ms=batch_ms,
+                scaled_err_mean=err.mean(0).tolist(),
+                scaled_err_max=err.max(0).tolist())
+    print("ampc_policy " + json.dumps(loop), flush=True)
+    out["policy"] = loop
+    return out
+
+
+def du0_dx0_fd(build, x0, eps, rows):
+    """Central finite differences of u0 over fresh solves: d u0 / d x0[i]
+    for i in ``rows``."""
+    cols = []
+    for i in rows:
+        us = []
+        for sgn in (1.0, -1.0):
+            mpc = build()
+            xp = x0.copy()
+            xp[i] += sgn * eps
+            mpc.x0 = xp
+            mpc.set_initial_guess()
+            us.append(np.asarray(mpc.make_step(xp)).reshape(-1))
+        cols.append((us[0] - us[1]) / (2 * eps))
+    return np.stack(cols, axis=1)
+
+
+def masses_nl_cons_mpc():
+    """tests/test_satellites.py:124-140: the oscillating masses with the
+    nl_cons u <= 0.3."""
+    import dompc_tpu_torch as dm
+    from dompc_tpu_torch.systems import oscillating_masses_model
+    model = oscillating_masses_model()
+    mpc = dm.controller.MPC(model)
+    mpc.settings.n_horizon = 7
+    mpc.settings.t_step = 0.5
+    mpc.set_objective(mterm=model.aux["cost"], lterm=model.aux["cost"])
+    mpc.set_rterm(u=1e-4)
+    max_x = np.array([[4.0], [10.0], [4.0], [10.0]])
+    mpc.bounds["lower", "_x", "x"] = -max_x
+    mpc.bounds["upper", "_x", "x"] = max_x
+    mpc.bounds["lower", "_u", "u"] = -0.5
+    mpc.bounds["upper", "_u", "u"] = 0.5
+    mpc.set_nl_cons("ulim", model.u["u"], ub=0.3)
+    mpc.setup()
+    return mpc
+
+
+def differentiator_masses():
+    """Phase 15d on the oscillating masses (the device of the environment):
+    du0/dx0 against central finite differences of fresh solves, free
+    (tests/test_satellites.py:50-81, atol 5e-4) and with the active nl_cons
+    (:122-173, 1e-4 for the first two states; du0/dx0 = 0 to 1e-6, LICQ)."""
+    import dompc_tpu_torch as dm
+    from dompc_tpu_torch.systems import (oscillating_masses_model,
+                                         oscillating_masses_mpc)
+    x0 = np.random.RandomState(99).rand(4) - 0.5
+    rec = {}
+    for case, build, rows, atol in (
+            ("free", lambda: oscillating_masses_mpc(
+                oscillating_masses_model()), range(4), 5e-4),
+            ("active", masses_nl_cons_mpc, range(2), 1e-4)):
+        t1 = time.perf_counter()
+        mpc = build()
+        mpc.x0 = x0
+        mpc.set_initial_guess()
+        u0 = float(np.asarray(mpc.make_step(x0)).reshape(-1)[0])
+        diff = dm.differentiator.DoMPCDifferentiator(mpc)
+        diff.settings.check_LICQ = True
+        diff.settings.check_SC = True
+        du = diff.du0_dx0()
+        fd = du0_dx0_fd(build, x0, 1e-5, rows)
+        err = float(np.max(np.abs(du[:, list(rows)] - fd)))
+        rec[case] = dict(u0=u0, du0_dx0=du.tolist(), fd=fd.tolist(),
+                         err=err, atol=atol, LICQ=diff.status.LICQ,
+                         SC=diff.status.SC, residuals=diff.status.residuals,
+                         device=str(mpc._device),
+                         s=time.perf_counter() - t1)
+        faults = []
+        if err > atol:
+            faults.append(f"du0/dx0 vs finite differences {err:.2e} "
+                          f"(atol {atol:g})")
+        if case == "active":
+            lam_h = mpc.lam_g_num[mpc.n_opt_lagr:]
+            if abs(u0 - 0.3) >= 1e-5 or np.max(lam_h) <= 1e-4:
+                faults.append(f"nl_cons not active: u0 {u0}, max lam_h "
+                              f"{np.max(lam_h):.2e}")
+            if not diff.status.LICQ or np.max(np.abs(du)) > 1e-6:
+                faults.append(f"LICQ {diff.status.LICQ}, |du0/dx0| "
+                              f"{np.max(np.abs(du)):.2e} (bound 1e-6)")
+        check(not faults, f"differentiator, {case}: " + "; ".join(faults))
+    return rec
+
+
+def active_names(mpc, active_sets):
+    """The active set as names: (layout key, element) for bounds, the
+    inequality row for ``h``."""
+    L = mpc.layout
+    names = []
+    for key in L.offsets:
+        for j in range(L.sizes[key]):
+            names.append(f"{key}[{j}]")
+    return {side: [names[i] if side != "h" else f"h[{i}]"
+                   for i in np.nonzero(mask)[0]]
+            for side, mask in active_sets.items()}
+
+
+def differentiator_flagship():
+    """Phase 15d at full width (the device of the environment): the
+    flagship's du0/dx0 after one make_step from CSTR_X0, with the sizes of
+    the dense sensitivity system and the ms of its assembly and solve."""
+    import torch
+    import dompc_tpu_torch as dm
+    from dompc_tpu_torch.systems import cstr_robust_mpc, CSTR_X0
+    mpc = cstr_robust_mpc(n_horizon=20, n_robust=1)
+    mpc.x0 = CSTR_X0
+    mpc.set_initial_guess()
+    t1 = time.perf_counter()
+    mpc.make_step(CSTR_X0)
+    step_ms = (time.perf_counter() - t1) * 1e3
+    diff = dm.differentiator.DoMPCDifferentiator(mpc)
+    solve_ms = []
+    real = diff._solve_lse
+
+    def timed(K, rhs):
+        _sync(K.device)
+        t = time.perf_counter()
+        out = real(K, rhs)
+        _sync(K.device)
+        solve_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    diff._solve_lse = timed
+    _sync(mpc._device)
+    t1 = time.perf_counter()
+    du = diff.du0_dx0()
+    total_ms = (time.perf_counter() - t1) * 1e3
+    return dict(du0_dx0=du.tolist(), K_dim=diff.K_dim, n_opt_x=mpc.n_opt_x,
+                n_active=diff.K_dim - mpc.n_opt_x, step_ms=step_ms,
+                iters=mpc.solver_stats["iter_count"],
+                total_ms=total_ms, solve_ms=solve_ms[0],
+                assembly_ms=total_ms - solve_ms[0],
+                residuals=diff.status.residuals,
+                active=active_names(mpc, diff.active_sets),
+                device=str(mpc._device),
+                dtype=str(mpc._dtype).replace("torch.", ""))
+
+
+def differentiator_card_vs_cpu(card, cpu):
+    """Phase 15d's yardstick: the flagship's active sets and du0/dx0, card
+    against the port on the CPU."""
+    flips = {side: sorted(set(card["active"][side])
+                          ^ set(cpu["active"][side]))
+             for side in card["active"]}
+    rel = _rel_max(card["du0_dx0"], cpu["du0_dx0"])
+    rec = dict(flipped=flips, du0_dx0_rel=rel, cpu_total_ms=cpu["total_ms"],
+               cpu_solve_ms=cpu["solve_ms"], cpu_step_ms=cpu["step_ms"],
+               cpu_iters=cpu["iters"], card_iters=card["iters"])
+    print("differentiator_card_vs_cpu " + json.dumps(rec), flush=True)
+    check(not any(flips.values()),
+          f"flagship active sets differ, card vs CPU: {flips}")
+    check(rel <= 1e-8, f"flagship du0/dx0 card vs CPU: rel {rel:.2e} "
+                       "(bound 1e-8)")
+    return rec
+
+
+def ampc_child():
+    """Child process (float32): phase 15 (a-c), then the float64 sampling
+    of 15a and its comparison with the float32 one.  It runs beside phases
+    11-13; on its own: ``python3 chip_smoke.py --ampc``."""
+    import torch
+    check(torch.cuda.is_available(), "CUDA is not available")
+    check("DOMPC_TPU_X64" not in os.environ
+          and "DOMPC_TPU_PLATFORM" not in os.environ,
+          "the approximate-MPC child runs float32 on the card")
+    ampc = ampc_phase()
+    ampc["f64_sampling"] = ampc_sampling_f64()
+    ampc["f32_vs_f64"] = ampc_f32_vs_f64(ampc.pop("U"), ampc.pop("OK"),
+                                         ampc["f64_sampling"])
+    for key in ("U", "OK"):
+        ampc["f64_sampling"].pop(key)
+    print("AMPC_RESULT " + json.dumps(ampc), flush=True)
+
+
 CHILD_TAGS = {"--main-path-f64": "F64_RESULT ", "--closed-loop-f64":
               "CL_RESULT ", "--mhe-f64": "MHE_RESULT ",
               "--dip-f64": "DIP_RESULT ", "--dip-cpu": "DIPCPU_RESULT ",
               "--dip-f32": "DIP32_RESULT ", "--minlp-f64": "MINLP_RESULT ",
-              "--zoo-f64": "ZOO_RESULT ", "--zoo-cpu": "ZOOCPU_RESULT "}
+              "--zoo-f64": "ZOO_RESULT ", "--zoo-cpu": "ZOOCPU_RESULT ",
+              "--ampc": "AMPC_RESULT "}
 
 
 def start_child(flag, x64=True, platform=None, sync=None):
@@ -2428,10 +2947,13 @@ def main():
     # and the CPU yardstick of 13-14
     say("DIP (N=100) float64 and float32, their cold solves side by side "
         "with the CPU yardstick (three subprocesses); beside them the "
-        "systems zoo float64 on the card and the CPU yardstick of phases "
-        "13-14 (two more):")
+        "systems zoo float64 and the differentiator on the card, the CPU "
+        "yardstick of phases 13-15 and the approximate-MPC workflow (three "
+        "more):")
     zoo_kid = start_child("--zoo-f64")
     zcpu = start_child("--zoo-cpu", platform="cpu")
+    # 15 (a-c) and 15a's float64 pass: one more subprocess beside them
+    ampc_kid = start_child("--ampc", x64=False)
     try:
         dip = dip_phase(say)
         print("dip_phase " + json.dumps(dip), flush=True)
@@ -2443,10 +2965,16 @@ def main():
         zoo = finish_child(zoo_kid, "--zoo-f64", 900)
         print("zoo_phase " + json.dumps(zoo), flush=True)
         ycpu = finish_child(zcpu, "--zoo-cpu", 900)
+        say("approximate MPC (subprocess):")
+        ampc = finish_child(ampc_kid, "--ampc", 900)
+        print("ampc_phase " + json.dumps(ampc), flush=True)
     finally:
         stop_child(zoo_kid)
         stop_child(zcpu)
+        stop_child(ampc_kid)
     zoo_card_vs_cpu(minlp, zoo, ycpu)
+    differentiator_card_vs_cpu(zoo["differentiator"]["flagship"],
+                               ycpu["differentiator"])
     say("done")
 
     def row(kname, case):
@@ -2494,7 +3022,9 @@ def main():
             flagship_merit_f64=zoo["merit"][key],
             kinematic_bicycle_f64=zoo["kinematic_bicycle"][key],
             kite_f64=zoo["kite"][key],
-            industrial_poly_f64=zoo["poly"][key])
+            industrial_poly_f64=zoo["poly"][key],
+            ampc_sampling_f32_B128=ampc["sampling"][key],
+            ampc_sampling_f64_B128=ampc["f64_sampling"][key])
     kernels = []
     for kname, src, line, main_path in (
             ("band_qr", "dompc_tpu_torch/csrc/band_qr.cu",
@@ -2548,7 +3078,8 @@ def main():
             "kkt_sweeps": [kkt, run64["kkt"], rti["kkt"],
                            mhe["tridiag"]["kkt"],
                            dip["f64"]["sweeps"]["spike"],
-                           dip["f32"]["sweeps"]["spike"], minlp["lv"]["kkt"]]
+                           dip["f32"]["sweeps"]["spike"], minlp["lv"]["kkt"],
+                           ampc["sampling"]["kkt"]]
             if kname == "band_qr" else [batched["kkt"]]})
         if kname == "band_qr":
             # per frontier expansion of branch-and-bound: band_qr launches
@@ -2596,5 +3127,8 @@ if __name__ == "__main__":
     elif sys.argv[1:] == ["--zoo-cpu"]:
         sys.path.insert(0, ROOT)
         zoo_cpu()
+    elif sys.argv[1:] == ["--ampc"]:
+        sys.path.insert(0, ROOT)
+        ampc_child()
     else:
         main()

@@ -5,7 +5,10 @@ Same module names and public names as the JAX package (``dm.model.Model``,
 ``mpc.scaling[...]``); the numerics run as eager PyTorch with
 ``torch.func`` transforms, and the KKT chain sweep runs in a hand-written
 CUDA kernel (``solver/band_qr.py``, ``csrc/band_qr.cu``).  The closed loop
-has ``dm.Simulator`` and ``dm.estimator.EKF``.
+has ``dm.Simulator`` and ``dm.estimator.EKF``; the satellites
+``dm.sampling``, ``dm.differentiator``, ``dm.approximateMPC`` (a
+``torch.nn`` policy) and ``dm.graphics`` (matplotlib, imported when
+drawing) come with the package.
 
 Environment (read when an MPC is set up, never at import):
 
@@ -34,5 +37,9 @@ from .simulator import Simulator  # noqa: E402
 from . import estimator  # noqa: E402
 from . import systems  # noqa: E402
 from . import parallel  # noqa: E402
+from . import sampling  # noqa: E402
+from . import differentiator  # noqa: E402
+from . import graphics  # noqa: E402
+from . import approximateMPC  # noqa: E402
 
 __version__ = "0.1.0"

@@ -4,10 +4,14 @@ The parity tests build the JAX objects and the port's from the same
 construction code (model constants and uncertainty values come along that
 way), then start both from the same numeric point: an MPC's solver with
 :func:`load_mpc_state`, an MHE's with :func:`load_mhe_state`, a Simulator
-or an EKF with :func:`load_loop_state`.
+or an EKF with :func:`load_loop_state`.  An approximate-MPC policy's weights
+cross as the JAX package's flax parameter tree of numpy arrays
+(:func:`ampc_params_to_torch`, :func:`ampc_params_from_torch`), the layout
+both packages pickle.
 Only numpy arrays cross: this module imports nothing of JAX.
 """
 import numpy as np
+import torch
 
 # scalings and bounds: the transcription is built from them at setup
 STRUCT_KEYS = ("_x_scaling", "_u_scaling", "_z_scaling", "_x_lb", "_x_ub",
@@ -57,6 +61,8 @@ def load_mpc_state(mpc, arrays):
     for key in ("_lam_warm", "_zl_warm", "_zu_warm", "_t0"):
         if key in arrays:
             setattr(mpc, key, np.array(arrays[key], dtype=float))
+    if "_lam_warm" in arrays:   # a solve leaves its multipliers in both
+        mpc.lam_g_num = mpc._lam_warm
     mpc.opt_x_num = np.array(arrays["opt_x_num"], dtype=float)
     mpc.opt_p_num = np.array(arrays["opt_p_num"], dtype=float)
     mpc.flags["initial_run"] = bool(arrays["initial_run"])
@@ -128,3 +134,30 @@ def load_mhe_state(mhe, arrays):
     mhe.flags["initial_run"] = bool(arrays["initial_run"])
     mhe.flags["set_initial_guess"] = True
     return mhe
+
+
+def ampc_params_to_torch(params_np):
+    """A flax parameter tree of an approximate-MPC policy, ``{"params":
+    {"Dense_i": {"kernel": (in, out), "bias": (out,)}}}`` (numpy or any
+    array), as a ``state_dict`` of the port's ``FeedforwardNN`` (float32
+    CPU tensors; ``layers.i.weight`` is the kernel transposed)."""
+    dense = params_np["params"]
+    state = {}
+    for i in range(len(dense)):
+        layer = dense[f"Dense_{i}"]
+        state[f"layers.{i}.weight"] = torch.as_tensor(
+            np.asarray(layer["kernel"], dtype=np.float32).T.copy())
+        state[f"layers.{i}.bias"] = torch.as_tensor(
+            np.asarray(layer["bias"], dtype=np.float32).copy())
+    return state
+
+
+def ampc_params_from_torch(net):
+    """The port's ``FeedforwardNN`` weights as the JAX package's flax
+    parameter tree of numpy arrays (the inverse of
+    :func:`ampc_params_to_torch`)."""
+    return {"params": {
+        f"Dense_{i}": {
+            "kernel": layer.weight.detach().cpu().numpy().T.copy(),
+            "bias": layer.bias.detach().cpu().numpy().copy()}
+        for i, layer in enumerate(net.layers)}}

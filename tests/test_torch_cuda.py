@@ -278,3 +278,128 @@ def test_bbd_solve_wide_band_takes_plain_route_on_card():
                                                    rhs_c, rhs_r)])
     assert float((xc.cpu() - xc_ref).abs().max()) < 1e-12
     assert float((xr.cpu() - xr_ref).abs().max()) < 1e-12
+
+
+def _port_env(monkeypatch, platform=None, x64=True):
+    """Select the port's device and dtype for what is set up next."""
+    for var, val in (("DOMPC_TPU_PLATFORM", platform),
+                     ("DOMPC_TPU_X64", "1" if x64 else None)):
+        if val is None:
+            monkeypatch.delenv(var, raising=False)
+        else:
+            monkeypatch.setenv(var, val)
+
+
+def _masses_mpc(ub_u):
+    """The oscillating masses (N=7) with the nl_cons u <= 0.3; with ub_u =
+    0.3 the nl_cons duplicates the active input bound and the sensitivity
+    system is exactly singular."""
+    import dompc_tpu_torch as tdm
+    from dompc_tpu_torch.systems import oscillating_masses_model
+    model = oscillating_masses_model()
+    mpc = tdm.controller.MPC(model)
+    mpc.settings.n_horizon = 7
+    mpc.settings.t_step = 0.5
+    mpc.set_objective(mterm=model.aux["cost"], lterm=model.aux["cost"])
+    mpc.set_rterm(u=1e-4)
+    max_x = np.array([[4.0], [10.0], [4.0], [10.0]])
+    mpc.bounds["lower", "_x", "x"] = -max_x
+    mpc.bounds["upper", "_x", "x"] = max_x
+    mpc.bounds["lower", "_u", "u"] = -0.5
+    mpc.bounds["upper", "_u", "u"] = ub_u
+    mpc.set_nl_cons("ulim", model.u["u"], ub=0.3)
+    mpc.setup()
+    return mpc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ub_u", [0.5, 0.3])
+def test_differentiator_on_card_matches_cpu(monkeypatch, ub_u):
+    """The sensitivity system assembled and solved on the card (float64):
+    the LU solve (active nl_cons) and the least-squares fallback (an exactly
+    singular system) against the port on the CPU at the same solution, to
+    1e-10."""
+    import dompc_tpu_torch as tdm
+    from dompc_tpu_torch.interop import mpc_state_arrays, load_mpc_state
+    _needs_card()
+    _port_env(monkeypatch)
+    card = _masses_mpc(ub_u)
+    assert card._device.type == "cuda" and card._dtype == torch.float64
+    # tests/test_satellites.py's state, where u0 wants more than 0.3
+    x0 = np.random.RandomState(99).rand(4) - 0.5
+    card.x0 = x0
+    card.set_initial_guess()
+    card.make_step(x0)
+    _port_env(monkeypatch, "cpu")
+    cpu = _masses_mpc(ub_u)
+    load_mpc_state(cpu, mpc_state_arrays(card))
+    out = []
+    for mpc in (card, cpu):
+        diff = tdm.differentiator.DoMPCDifferentiator(mpc)
+        diff.settings.check_LICQ = True
+        dx_dp, dlam_dp = diff.differentiate()
+        out.append((dx_dp, dlam_dp, diff.status, diff.active_sets))
+    (cx, cl, cs, ca), (px, pl, ps, pa) = out
+    for key in ca:
+        np.testing.assert_array_equal(ca[key], pa[key])
+    assert cs.LICQ == ps.LICQ == (ub_u != 0.3)
+    assert cs.residuals < 1e-10
+    assert np.max(np.abs(cx - px)) <= 1e-10 * max(1.0, np.max(np.abs(px)))
+    assert np.max(np.abs(cl - pl)) <= 1e-10 * max(1.0, np.max(np.abs(pl)))
+
+
+@pytest.mark.cuda
+def test_sample_batched_on_card(monkeypatch, tmp_path):
+    """Sampler.sample_batched stacks the plan on the card and vmaps the
+    sample function there; the results equal the sequential samples."""
+    import dompc_tpu_torch as tdm
+    _needs_card()
+    _port_env(monkeypatch)
+    plan = [{"id": str(i).zfill(3), "alpha": float(a), "beta": int(b)}
+            for i, (a, b) in enumerate(zip(np.linspace(-1, 1, 9),
+                                           range(9)))]
+    seen = []
+
+    def fun(alpha, beta):
+        seen.append(alpha.device)
+        return {"prod": alpha * beta, "cube": alpha ** 3}
+
+    sampler = tdm.sampling.Sampler(plan, print_progress=False,
+                                   data_dir=str(tmp_path) + "/")
+    sampler.set_sample_function(fun)
+    res = sampler.sample_batched()
+    assert seen and all(d.type == "cuda" for d in seen)
+    want = np.array([c["alpha"] * c["beta"] for c in plan])
+    np.testing.assert_allclose(res["prod"], want, rtol=1e-15)
+    for c in plan:
+        got = tdm.tools.load_pickle(str(tmp_path / f"sample_{c['id']}"))
+        assert abs(got["cube"] - c["alpha"] ** 3) < 1e-15
+
+
+@pytest.mark.cuda
+def test_trainer_epoch_on_card_matches_cpu(monkeypatch):
+    """One Trainer epoch on the card against the same epoch on the CPU,
+    same initial weights, same data (float32): losses to 1e-5 relative."""
+    import dompc_tpu_torch as tdm
+    from dompc_tpu_torch.systems import (oscillating_masses_model,
+                                         oscillating_masses_mpc)
+    _needs_card()
+    _port_env(monkeypatch, x64=False)
+    mpc = oscillating_masses_mpc(oscillating_masses_model())
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-1.0, 1.0, (256, 4))
+    U_prev = rng.uniform(-0.4, 0.4, (256, 1))
+    U = np.clip(-0.3 * X[:, :1] + 0.1 * U_prev, -0.5, 0.5)
+    hist = []
+    for device in ("cuda", "cpu"):
+        approx = tdm.approximateMPC.ApproxMPC(mpc)
+        approx.net.to(device)
+        assert approx.device.type == device
+        st = tdm.approximateMPC.TrainerSettings(
+            n_epochs=1, batch_size=32, learning_rate=3e-3,
+            print_frequency=0)
+        hist.append(tdm.approximateMPC.Trainer(approx, st).default_training(
+            X, U, U_prev=U_prev, seed=0))
+    for key in ("train_loss", "val_loss", "update_norm"):
+        np.testing.assert_allclose(hist[0][key], hist[1][key], rtol=1e-5,
+                                   err_msg=key)
