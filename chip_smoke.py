@@ -141,16 +141,44 @@ Phases, each fatal on failure (non-zero exit, no result line):
    1e-4, du0/dx0 = 0 to 1e-6 with LICQ), and the flagship's du0/dx0
    after one step, its active sets and du0/dx0 against the port on the
    CPU (the 13-14 yardstick's subprocess) to 1e-8, with the size of the
-   dense sensitivity system and the ms of its assembly and solve.
+   dense sensitivity system and the ms of its assembly and solve;
+16. the last modules: (a) float32, after phase 7: phase 5's default-backend
+   cold and warm calls (B=128) again through parallel.make_sharded_solver
+   over a one-rank NCCL group made by init_distributed (one card: no
+   traffic between ranks): n_ok = 128, u0 (1e-6 relative) and iterations
+   (exactly) equal to phase 5's, one band_qr launch per Newton step, no
+   tiled launch, solves/s beside phase 5's; (b) float32: one more warm
+   flagship make_step on phase 4's MPC, then one under
+   tools.profiler.trace into build/trace_smoke: the Chrome trace holds the
+   range dompc_tpu_torch.MPC.solve/<n> and as many band_qr kernel events
+   as the wrapper counted launches, with the kernels' summed device time;
+   save_device_memory_profile writes a non-empty snapshot; (c) float64,
+   in phase 8's subprocess: phase 8b's converged controller and
+   cstr_simulator as two opcua.RTBase nodes over an in-memory tag store,
+   2 cycles from 8b's start, u and x equal to 8b's first 2 steps to
+   1e-12; then the flagship MPC itself behind RTBase (MPC.make_step) the
+   same way, u and x equal to a direct make_step loop of a second MPC
+   built alike to 1e-12; band_qr launches per cycle, no tiled launch, ms
+   per node step; (d)
+   float64, same subprocess: sysid.ONNXOperations on the 3-5-1 MLP of
+   examples/tools/onnx_conversion/onnx_conversion_01.py and
+   solver.structured's band_matvec, band_factor + band_solve and
+   band_solve_qr on a seeded (S=21, b=13) band, card against CPU to
+   1e-12.
 
 Every kernel counter is set to 0 just before each path and read just
-after.  Phases 2-10 run one after another; from phase 11 on, the two
+after.  Phases 2-7 run one after another in the main process (with
+16a-b, 14's float32 flagship and 13's float32 MINLP); then the float64
+subprocesses of phases 4 and 6, of 8-9 (with 16c-d), of 10 and of 13
+run side by side, and the main process echoes their lines in that
+order, each when its child ends; from phase 11 on, the two
 cold DIP solves run beside each other, the CPU yardstick of phase 11,
 phase 14's float64 subprocess and the CPU yardstick of 13-14, and each
-DIP child then goes on alone but for those last two; phase 13's float64
-subprocess runs after the DIP.  Phase 15 runs in a subprocess of its own
+DIP child then goes on alone but for those last two.  Phase 15 runs in a subprocess of its own
 beside phases 11-13, but for the differentiator, which runs in phase 14's
-float64 subprocess.  Each heading carries the seconds since the start.  The last stdout line is {"ok": true, "device": {...}}; the line
+float64 subprocess; phase 16 runs in the main process after phase 7 (a,
+b) and in phase 8's subprocess (c, d).  Each heading carries the seconds
+since the start.  The last stdout line is {"ok": true, "device": {...}}; the line
 before it lists the kernels, and the one before that names the card and
 its power limit.  Needs CUDA; exits non-zero without it.
 """
@@ -438,7 +466,8 @@ def drive_main_path(n_steps, f32_settings, record=False):
     check(band_qr.band_solve_tiled.launches == 0,
           "make_step launched the tiled kernel under the default backend")
     return dict(setup_s=setup_s, steps=steps, launches=launches,
-                first_state=first_state, recorded=recorded)
+                first_state=first_state, recorded=recorded, mpc=mpc,
+                next_x0=x0)
 
 
 @contextlib.contextmanager
@@ -622,6 +651,8 @@ def main_path_f64():
 
     check(os.environ.get("DOMPC_TPU_X64") == "1", "child needs X64")
     run = drive_main_path(MAIN_STEPS, f32_settings=False, record=True)
+    run.pop("mpc")
+    run.pop("next_x0")
     run["kkt"] = check_recorded(run.pop("recorded"), "band_qr",
                                 band_qr.band_solve, "float64 make_step 0")
     os.environ["DOMPC_TPU_PLATFORM"] = "cpu"
@@ -725,11 +756,17 @@ def batched_phase():
                   f"batched {name} {kind}: {launches[own]} launches for "
                   f"{steps} Newton steps")
             calls.append(dict(rec, u0=u))
+            if name == "pallas":
+                # phase 16a repeats these calls sharded
+                out.setdefault("shard_start", dict(
+                    mpc=mpc, x0s=x0s, W=W, calls=[]))["calls"].append(
+                    dict(u0=u, iters=it, solves_per_s=B / wall))
             if name == "pallas" and kind == "warm":
                 # phase 7 starts where bench.py's RTI rows do: from the
                 # default backend's cold solution, against its warm call
                 out["rti_start"] = dict(mpc=mpc, x0s=x0s, cold=prev,
                                         warm_F=u[:, 0], warm_rate=B / wall)
+                out["shard_start"]["cold"] = prev
             prev = sol
         out["runs"][name] = calls
     worst = 0.0
@@ -891,6 +928,7 @@ def closed_loop_pair(n_steps=CL_STEPS):
         sol, u = solver(x[None], w0)
         sync()
         cold_ms = (time.perf_counter() - t0) * 1e3
+        us = [u[0].double().cpu().numpy()]
         Fs, xs, cost = [float(u[0, 0])], [x.copy()], 0.0
         iters, ok, step_ms, sim_ms, sim_steps = [], [], [], [], []
         for _ in range(n_steps):
@@ -911,10 +949,12 @@ def closed_loop_pair(n_steps=CL_STEPS):
             sync()
             step_ms.append((time.perf_counter() - t0) * 1e3)
             Fs.append(float(u[0, 0]))
+            us.append(u[0].double().cpu().numpy())
             iters.append(int(sol.iterations[0]))
             ok.append(bool(sol.success[0]))
         out[name] = dict(
-            F=Fs, x=[v.tolist() for v in xs], cost=cost, cold_ms=cold_ms,
+            F=Fs, u=us, x=[v.tolist() for v in xs], cost=cost,
+            cold_ms=cold_ms,
             step_ms=step_ms, iters=iters, success=ok, sim_ms=sim_ms,
             sim_adaptive_steps=sim_steps,
             newton_steps=solver.ipm.newton_steps - steps0,
@@ -927,6 +967,7 @@ def closed_loop_pair(n_steps=CL_STEPS):
     out["x_rel_max"] = float(np.max(np.abs(x_rti - x_full)
                                     / (1 + np.abs(x_full))))
     out["cost_ratio"] = out["rti"]["cost"] / out["full"]["cost"]
+    out["start"] = dict(mpc=mpc, full=full, w0=w0)
     return out
 
 
@@ -1096,6 +1137,10 @@ def closed_loop_f64():
           f"{n_rti['newton_steps']} Newton steps (want 2 each)")
     rec["closed_loop"] = {k: res[k] for k in ("F_rel_max", "x_rel_max",
                                               "cost_ratio", "wall_s")}
+    # 16c: the OPC UA node loop from 8b's start, against its converged loop
+    rec["opcua"] = opcua_loop(res)
+    # 16d: the host-side modules on the card against the CPU
+    rec["host_modules"] = host_modules_on_card()
     rec["closed_loop"].update({
         f"{name}_{key}": res[name][key] for name in ("full", "rti")
         for key in ("cold_ms", "step_ms", "iters", "sim_ms",
@@ -2774,6 +2819,371 @@ def ampc_child():
     print("AMPC_RESULT " + json.dumps(ampc), flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 16: sharded serving, trace capture, OPC UA nodes, host-side modules
+# --------------------------------------------------------------------------
+
+def free_port():
+    """A TCP port on localhost that is free now (the process group's
+    store)."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_phase(start):
+    """Phase 16a: phase 5's default-backend calls (the flagship at B=128,
+    float32, throughput mode, tol 1e-3, the same states and warm start)
+    through ``parallel.make_sharded_solver`` over a one-rank NCCL group made
+    by ``init_distributed``: n_ok = 128, u0 and iterations equal to phase
+    5's, one band_qr launch per Newton step and no tiled launch."""
+    import torch
+    import torch.distributed as dist
+    from dompc_tpu_torch.solver import band_qr
+    from dompc_tpu_torch.parallel import init_distributed, make_sharded_solver
+
+    mpc, x0s, W, cold = (start[k] for k in ("mpc", "x0s", "W", "cold"))
+    B = x0s.shape[0]
+    check(init_distributed(f"127.0.0.1:{free_port()}", 1, 0),
+          "init_distributed returned False")
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+              and torch.cuda.current_device() == mpc._device.index,
+              f"process group {dist.get_backend()} on cuda:"
+              f"{torch.cuda.current_device()}, MPC on {mpc._device}")
+        kw = dict(tol=1e-3, max_iter=60, throughput_mode=True)
+        cold_solve, mesh = make_sharded_solver(mpc, **kw)
+        warm_solve, _ = make_sharded_solver(mpc, mesh=mesh, warm=True, **kw)
+        out = dict(B=B, mesh_size=mesh.size(), calls=[])
+        for kind, solve, args, ref in (
+                ("cold", cold_solve, (x0s, W), start["calls"][0]),
+                ("warm", warm_solve, (x0s * (1.0 + 1e-3), cold.w, cold.lam,
+                                      1e-4, cold.zl, cold.zu),
+                 start["calls"][1])):
+            band_qr.band_solve.launches = 0
+            band_qr.band_solve_tiled.launches = 0
+            steps0 = solve.solve_batch.ipm.newton_steps
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            u0, iters, n_ok = solve(*args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"band_qr": band_qr.band_solve.launches,
+                        "band_sweep_tiled": band_qr.band_solve_tiled.launches}
+            steps = solve.solve_batch.ipm.newton_steps - steps0
+            u = u0.double().cpu().numpy()
+            it = iters.cpu().numpy()
+            rel = _rel_max(u, ref["u0"])
+            rec = dict(call=kind, wall_s=wall, solves_per_s=B / wall,
+                       phase5_solves_per_s=ref["solves_per_s"],
+                       n_ok=float(n_ok), iters_mean=float(it.mean()),
+                       u0_rel_vs_phase5=rel, newton_steps=steps,
+                       launches=launches)
+            print("sharded " + json.dumps(rec), flush=True)
+            check(u.shape == ref["u0"].shape and it.shape == (B,),
+                  f"sharded {kind}: shapes {u.shape}, {it.shape}")
+            check(float(n_ok) == B, f"sharded {kind}: n_ok {float(n_ok)} "
+                                    f"of {B}")
+            check(np.array_equal(it, ref["iters"]),
+                  f"sharded {kind}: iterations differ from phase 5's")
+            check(rel <= 1e-6, f"sharded {kind}: u0 differs from phase 5's "
+                               f"by {rel:.2e} (bound 1e-6)")
+            check(launches["band_qr"] == steps > 0
+                  and launches["band_sweep_tiled"] == 0,
+                  f"sharded {kind}: launches {launches} for {steps} Newton "
+                  "steps")
+            out["calls"].append(rec)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def trace_phase(run):
+    """Phase 16b: one warm flagship float32 ``make_step`` (phase 4's MPC)
+    without the profiler, the next under ``tools.profiler.trace`` into
+    build/: the trace holds the step's solve range and as many band_qr
+    kernel events as the wrapper counted launches; then
+    ``save_device_memory_profile`` writes a non-empty snapshot."""
+    import glob
+    import pickle
+    import shutil
+    import torch
+    from dompc_tpu_torch.solver import band_qr
+    from dompc_tpu_torch.tools import profiler
+
+    mpc, x0 = run.pop("mpc"), run.pop("next_x0")
+    L = mpc.layout
+
+    def step(x):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mpc.make_step(x)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(mpc.solver_stats["success"], "trace phase: a step did not "
+                                           "certify")
+        nxt = np.asarray(mpc.opt_x_num[L.sl(("x_node", 1, 0))]) \
+            * mpc._x_scaling.data
+        return ms, mpc.solver_stats["iter_count"], nxt
+
+    plain_ms, plain_iters, x1 = step(x0)
+    logdir = os.path.join(ROOT, "build", "trace_smoke")
+    shutil.rmtree(logdir, ignore_errors=True)
+    band_qr.band_solve.launches = 0
+    band_qr.band_solve_tiled.launches = 0
+    with profiler.trace(logdir, create_perfetto_trace=True):
+        prof_ms, prof_iters, _ = step(x1)
+    launches = {"band_qr": band_qr.band_solve.launches,
+                "band_sweep_tiled": band_qr.band_solve_tiled.launches}
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    check(len(files) == 1, f"trace files: {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    solve_range = f"dompc_tpu_torch.MPC.solve/{mpc._n_solves}"
+    check(any(e.get("name") == solve_range for e in events),
+          f"the trace holds no range {solve_range}")
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    band = [e for e in kernels if "band_qr" in e.get("name", "")]
+    kernel_ms = sum(e.get("dur", 0.0) for e in kernels) / 1e3
+    out = dict(plain_step_ms=plain_ms, plain_iters=plain_iters,
+               profiled_step_ms=prof_ms, profiled_iters=prof_iters,
+               launches=launches, band_qr_events=len(band),
+               band_qr_event_name=band[0]["name"] if band else None,
+               kernel_events=len(kernels), kernel_ms=kernel_ms,
+               device_busy_share=kernel_ms / prof_ms,
+               band_qr_ms=sum(e.get("dur", 0.0) for e in band) / 1e3,
+               trace_mb=os.path.getsize(files[0]) / 2 ** 20)
+    mem = os.path.join(logdir, "device_memory.pkl")
+    profiler.save_device_memory_profile(mem)
+    with open(mem, "rb") as f:
+        snap = pickle.load(f)
+    out.update(memory_profile_bytes=os.path.getsize(mem),
+               memory_segments=len(snap.get("segments", ())))
+    print("trace " + json.dumps(out), flush=True)
+    check(launches["band_qr"] > 0 and launches["band_sweep_tiled"] == 0,
+          f"profiled step: launches {launches}")
+    check(len(band) == launches["band_qr"],
+          f"the trace holds {len(band)} band_qr kernel events for "
+          f"{launches['band_qr']} launches")
+    check(out["memory_profile_bytes"] > 0 and out["memory_segments"] > 0,
+          "the device-memory snapshot is empty")
+    return out
+
+
+class TagStore:
+    """In-memory stand-in for an OPC UA server (tests/test_opcua.py's
+    FakeClient): ``client`` is an ``RTBase`` client factory whose clients
+    read and write ``tags``."""
+
+    def __init__(self):
+        self.tags = {}
+
+    def client(self, opts, namespace):
+        store = self
+
+        class Client:
+            namespace_list = [namespace]
+
+            def connect(self):
+                pass
+
+            def disconnect(self):
+                pass
+
+            def writeData(self, tag, value):
+                store.tags[tag] = value
+
+            def readData(self, tag):
+                return store.tags[tag]
+        return Client()
+
+
+class ServingNode:
+    """Phase 8b's converged controller as a node: the flagship's
+    ``make_batch_solver(tol=1e-6, max_iter=80)`` on a batch of one, cold at
+    the first step and warm-started from its last solution (mu0 1e-4)
+    after, behind the MPC's model and settings.  ``MPC.make_step`` is not
+    that computation (it moves u_prev and takes one refinement pass), so
+    the node wraps the solver the loop it is held to ran."""
+
+    def __init__(self, mpc, solver, w0):
+        self.model, self.settings = mpc.model, mpc.settings
+        self.solver, self.w0, self.sol = solver, w0, None
+
+    def make_step(self, x0):
+        x = np.asarray(x0, dtype=float).reshape(1, -1)
+        if self.sol is None:
+            self.sol, u = self.solver(x, self.w0)
+        else:
+            s = self.sol
+            self.sol, u = self.solver(x, s.w, s.lam, 1e-4, s.zl, s.zu)
+        return u.double().cpu().numpy().reshape(-1, 1)
+
+
+OPCUA_CYCLES = 2       # node-loop cycles of 16c (phase 8b's first 2 steps)
+
+
+def _node_cycles(controller):
+    """OPCUA_CYCLES cycles of ``controller`` and a fresh ``cstr_simulator``
+    from CSTR_X0 as two ``RTBase`` nodes exchanging u and the plant's
+    measurements through a :class:`TagStore`: u and x of every cycle, ms
+    per node step, and both kernels' launches in each controller step (the
+    counts set to 0 just before it and read just after)."""
+    import torch
+    from dompc_tpu_torch.solver import band_qr
+    from dompc_tpu_torch.opcua import ClientOpts, RTBase
+    from dompc_tpu_torch.systems import cstr_model, cstr_simulator, CSTR_X0
+
+    store = TagStore()
+    sim = cstr_simulator(cstr_model())
+    sim.x0 = CSTR_X0.copy()
+    rt_mpc = RTBase(controller, ClientOpts("mpc", "localhost", 4840),
+                    client_factory=store.client)
+    rt_sim = RTBase(sim, ClientOpts("sim", "localhost", 4840),
+                    client_factory=store.client)
+    rt_mpc.def_namespace.namespace_index = 1
+    rt_sim.def_namespace.namespace_index = 2
+    u_tags = [e.get_node_id(1) for e in rt_mpc.def_namespace.entry_list
+              if e.objectnode == "_u"]
+    x_tags = [e.get_node_id(2) for e in rt_sim.def_namespace.entry_list
+              if e.objectnode == "_y"]
+    check(len(u_tags) == 2 and len(x_tags) == 4,
+          f"OPC UA tags {u_tags} {x_tags}")
+    rt_mpc.set_read_tags(x_tags)
+    rt_mpc.set_write_tags(u_tags)
+    rt_sim.set_read_tags(u_tags)
+    rt_sim.set_write_tags(x_tags)
+    rt_sim.write_to_tags(CSTR_X0)
+    out = dict(u=[], x=[], mpc_node_ms=[], sim_node_ms=[],
+               launches_per_cycle=[], tiled_per_cycle=[])
+    for _ in range(OPCUA_CYCLES):
+        band_qr.band_solve.launches = 0
+        band_qr.band_solve_tiled.launches = 0
+        t0 = time.perf_counter()
+        rt_mpc.make_step()
+        torch.cuda.synchronize()
+        out["mpc_node_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches_per_cycle"].append(band_qr.band_solve.launches)
+        out["tiled_per_cycle"].append(band_qr.band_solve_tiled.launches)
+        t0 = time.perf_counter()
+        rt_sim.make_step()
+        out["sim_node_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["u"].append([store.tags[t] for t in u_tags])
+        out["x"].append([store.tags[t] for t in x_tags])
+    return out
+
+
+def _fresh_flagship_mpc():
+    from dompc_tpu_torch.systems import cstr_robust_mpc, CSTR_X0
+
+    mpc = cstr_robust_mpc(n_horizon=20, n_robust=1)
+    mpc.x0 = CSTR_X0
+    mpc.set_initial_guess()
+    return mpc
+
+
+def opcua_loop(res):
+    """Phase 16c (float64), OPCUA_CYCLES cycles from CSTR_X0 of two
+    ``RTBase`` node loops (:func:`_node_cycles`): phase 8b's converged
+    controller (:class:`ServingNode`), u and x equal to 8b's loop, and
+    the flagship ``MPC`` itself, ``RTBase(mpc)`` driving ``MPC.make_step``,
+    u and x equal to a direct ``mpc.make_step`` / ``sim.make_step`` loop of
+    a second MPC built the same way; both 1e-12 relative, band_qr launches
+    per cycle and no tiled launch, ms per node step."""
+    from dompc_tpu_torch.systems import cstr_model, cstr_simulator, CSTR_X0
+
+    start, ref = res["start"], res["full"]
+    serving = _node_cycles(ServingNode(start["mpc"], start["full"],
+                                       start["w0"]))
+    node = _node_cycles(_fresh_flagship_mpc())
+    direct_mpc = _fresh_flagship_mpc()
+    sim = cstr_simulator(cstr_model())
+    sim.x0 = CSTR_X0.copy()
+    x, direct = CSTR_X0.copy(), dict(u=[], x=[])
+    for _ in range(OPCUA_CYCLES):
+        u = direct_mpc.make_step(x)
+        x = np.asarray(sim.make_step(u)).reshape(-1)
+        direct["u"].append(u.reshape(-1))
+        direct["x"].append(x)
+    out = dict(cycles=OPCUA_CYCLES,
+               u_rel_vs_8b=_rel_max(serving["u"], ref["u"][:OPCUA_CYCLES]),
+               x_rel_vs_8b=_rel_max(serving["x"],
+                                    ref["x"][1:OPCUA_CYCLES + 1]),
+               **{k: serving[k] for k in (
+                   "mpc_node_ms", "sim_node_ms", "launches_per_cycle",
+                   "tiled_per_cycle")},
+               mpc_node=dict(
+                   u_rel_vs_direct=_rel_max(node["u"], direct["u"]),
+                   x_rel_vs_direct=_rel_max(node["x"], direct["x"]),
+                   **{k: node[k] for k in (
+                       "mpc_node_ms", "sim_node_ms", "launches_per_cycle",
+                       "tiled_per_cycle")}))
+    print("opcua_loop " + json.dumps(out), flush=True)
+    nd = out["mpc_node"]
+    check(out["u_rel_vs_8b"] <= 1e-12 and out["x_rel_vs_8b"] <= 1e-12,
+          f"OPC UA node loop against phase 8b: u {out['u_rel_vs_8b']:.2e}, "
+          f"x {out['x_rel_vs_8b']:.2e} (bound 1e-12)")
+    check(nd["u_rel_vs_direct"] <= 1e-12 and nd["x_rel_vs_direct"] <= 1e-12,
+          f"RTBase(mpc) loop against the direct make_step loop: u "
+          f"{nd['u_rel_vs_direct']:.2e}, x {nd['x_rel_vs_direct']:.2e} "
+          "(bound 1e-12)")
+    for name, loop in (("ServingNode", serving), ("MPC", node)):
+        check(all(n > 0 for n in loop["launches_per_cycle"])
+              and not any(loop["tiled_per_cycle"]),
+              f"OPC UA {name} loop launches {loop['launches_per_cycle']}, "
+              f"tiled {loop['tiled_per_cycle']}")
+    return out
+
+
+def host_modules_on_card():
+    """Phase 16d (float64): ``sysid.ONNXOperations`` on the 3-5-1 MLP of
+    examples/tools/onnx_conversion/onnx_conversion_01.py (its seeded
+    weights, the example's input and 63 seeded ones) and
+    ``solver.structured``'s band_matvec, band_factor + band_solve and
+    band_solve_qr on a seeded (S=21, b=13) band, on the card against the
+    same calls on the CPU (1e-12)."""
+    import torch
+    from dompc_tpu_torch.sysid import ONNXOperations
+    from dompc_tpu_torch.solver import structured
+
+    ops = ONNXOperations()
+    rng = np.random.default_rng(0)
+    W1, b1 = rng.standard_normal((3, 5)), rng.standard_normal(5)
+    W2, b2 = rng.standard_normal((5, 1)), rng.standard_normal(1)
+    x = np.vstack([np.ones((1, 3)), rng.standard_normal((63, 3))])
+    S, b = 21, 13
+    D = rng.standard_normal((S, b, b)) + 3.0 * b * np.eye(b)
+    U = rng.standard_normal((S - 1, b, b))
+    Lo = rng.standard_normal((S - 1, b, b))
+    rhs = rng.standard_normal((S, b))
+
+    def run(device):
+        def T(a):
+            return torch.as_tensor(a, dtype=torch.float64, device=device)
+        h = ops.Relu(ops.Add(ops.MatMul(T(x), T(W1)), T(b1)))
+        y = ops.Add(ops.MatMul(h, T(W2)), T(b2))
+        band = [T(a) for a in (D, U, Lo)]
+        factors = structured.band_factor(*band)
+        outs = dict(mlp=y, matvec=structured.band_matvec(*band, T(rhs)),
+                    lu_solve=structured.band_solve(factors, band[1],
+                                                   band[2], T(rhs)),
+                    qr_solve=structured.band_solve_qr(*band, T(rhs)))
+        check(all(v.device.type == torch.device(device).type
+                  for v in outs.values()), f"16d outputs not on {device}")
+        return {k: v.cpu().numpy() for k, v in outs.items()}
+
+    card, cpu = run("cuda"), run("cpu")
+    out = {k: float(np.max(np.abs(card[k] - cpu[k]))
+                    / max(1e-300, np.max(np.abs(cpu[k])))) for k in cpu}
+    out["lu_vs_qr"] = float(np.max(np.abs(card["lu_solve"]
+                                          - card["qr_solve"])))
+    print("host_modules " + json.dumps(out), flush=True)
+    check(max(out.values()) <= 1e-12,
+          f"host-side modules, card against CPU: {out} (bound 1e-12)")
+    return out
+
+
 CHILD_TAGS = {"--main-path-f64": "F64_RESULT ", "--closed-loop-f64":
               "CL_RESULT ", "--mhe-f64": "MHE_RESULT ",
               "--dip-f64": "DIP_RESULT ", "--dip-cpu": "DIPCPU_RESULT ",
@@ -2828,16 +3238,6 @@ def finish_child(proc, flag, timeout, go=False):
     check(proc.returncode == 0, f"{flag} child failed:\n{err[-4000:]}")
     return json.loads(next(l for l in out.splitlines()
                            if l.startswith(tag))[len(tag):])
-
-
-def run_child(flag, timeout):
-    """Run this script with ``flag`` in a float64 child; echo its lines,
-    fail with its errors, return its result line's JSON."""
-    proc = start_child(flag)
-    try:
-        return finish_child(proc, flag, timeout)
-    finally:
-        stop_child(proc)
 
 
 def summarize(tag, run):
@@ -2917,6 +3317,11 @@ def main():
     # 7. RTI serving, float32, from phase 5's default-backend solution
     say("RTI serving float32, B=128:")
     rti = rti_phase(batched.pop("rti_start"))
+    # 16a and 16b, float32: sharded serving and trace capture
+    say("sharded serving float32, B=128, over a one-rank NCCL group:")
+    sharded = sharded_phase(batched.pop("shard_start"))
+    say("trace capture of a warm make_step float32:")
+    traced = trace_phase(run32)
     # 14, float32: the flagship with n_refine_kkt=1 against the default
     say("flagship float32, n_refine_kkt=1 against the default:")
     refine = refine_f32()
@@ -2928,19 +3333,35 @@ def main():
                        **expansion_summary(minlp32["expansions"]))
     minlp32_rec.pop("w")
     print("minlp_scalar_f32 " + json.dumps(minlp32_rec), flush=True)
-    say("make_step float64 and batched float64 (subprocess):")
-    run64 = run_child("--main-path-f64", 900)
-    main32, main64 = summarize("float32", run32), summarize("float64", run64)
-    print("main_path " + json.dumps(main32), flush=True)
-    print("main_path " + json.dumps(main64), flush=True)
-    # 8 and 9. the closed loop and the EKF, float64
-    say("closed loop and EKF float64 (subprocess):")
-    loop64 = run_child("--closed-loop-f64", 600)
-    print("closed_loop " + json.dumps(loop64), flush=True)
-    # 10. moving-horizon estimation and the coupled loop, float64
-    say("MHE and the coupled MHE + MPC loop float64 (subprocess):")
-    mhe64 = run_child("--mhe-f64", 600)
-    print("mhe_phase " + json.dumps(mhe64), flush=True)
+    # 4 and 6 (float64), 8, 9, 16c-d, 10 and 13 (float64): four float64
+    # children side by side, each mostly host dispatch on a core of its
+    # own, with counters of its own; each one's lines are echoed when it
+    # ends
+    say("make_step float64 and batched float64; closed loop and EKF "
+        "float64; MHE and the coupled MHE + MPC loop float64; mixed-integer "
+        "MPC float64 (four subprocesses side by side):")
+    f64_kids = {flag: start_child(flag) for flag in (
+        "--main-path-f64", "--closed-loop-f64", "--mhe-f64", "--minlp-f64")}
+    try:
+        run64 = finish_child(f64_kids["--main-path-f64"], "--main-path-f64",
+                             900)
+        main32 = summarize("float32", run32)
+        main64 = summarize("float64", run64)
+        print("main_path " + json.dumps(main32), flush=True)
+        print("main_path " + json.dumps(main64), flush=True)
+        say("closed loop and EKF float64 (its lines):")
+        loop64 = finish_child(f64_kids["--closed-loop-f64"],
+                              "--closed-loop-f64", 600)
+        print("closed_loop " + json.dumps(loop64), flush=True)
+        say("MHE and the coupled MHE + MPC loop float64 (its lines):")
+        mhe64 = finish_child(f64_kids["--mhe-f64"], "--mhe-f64", 600)
+        print("mhe_phase " + json.dumps(mhe64), flush=True)
+        say("mixed-integer MPC float64 (its lines):")
+        minlp = finish_child(f64_kids["--minlp-f64"], "--minlp-f64", 900)
+        print("minlp_phase " + json.dumps(minlp), flush=True)
+    finally:
+        for proc in f64_kids.values():
+            stop_child(proc)
     # 11 and 12, the double inverted pendulum in float64 and float32 and
     # the LQR loop; beside them 14's float64 runs on the card (the
     # polymerization's two 150-iteration steps set that child's length)
@@ -2957,10 +3378,6 @@ def main():
     try:
         dip = dip_phase(say)
         print("dip_phase " + json.dumps(dip), flush=True)
-        # 13, float64
-        say("mixed-integer MPC float64 (subprocess):")
-        minlp = run_child("--minlp-f64", 900)
-        print("minlp_phase " + json.dumps(minlp), flush=True)
         say("the systems zoo float64 and the CPU yardstick of phases 13-14:")
         zoo = finish_child(zoo_kid, "--zoo-f64", 900)
         print("zoo_phase " + json.dumps(zoo), flush=True)
@@ -2993,8 +3410,16 @@ def main():
             c["launches"]["band_sweep_tiled"]
             for c in runs["pallas_tiled"])}}
     mhe, cpl = mhe64["mhe"], mhe64["coupled_loop"]
+    opc = loop64["opcua"]
     for kname, paths in by_path.items():
+        cycles = "launches_per_cycle" if kname == "band_qr" \
+            else "tiled_per_cycle"
         paths.update({
+            "sharded_f32_B128": sum(c["launches"][kname]
+                                    for c in sharded["calls"]),
+            "profiled_step_f32": traced["launches"][kname],
+            "opcua_loop_f64": sum(opc[cycles]),
+            "opcua_mpc_node_f64": sum(opc["mpc_node"][cycles]),
             "rti_f32_B128": rti["modes"]["rti"]["launches"][kname],
             "rti_drift_f32_B128": rti["modes"]["rti_drift"]["launches"][kname],
             "closed_loop_f64_full": cl["full_launches"][kname],

@@ -8,7 +8,10 @@ CUDA kernel (``solver/band_qr.py``, ``csrc/band_qr.cu``).  The closed loop
 has ``dm.Simulator`` and ``dm.estimator.EKF``; the satellites
 ``dm.sampling``, ``dm.differentiator``, ``dm.approximateMPC`` (a
 ``torch.nn`` policy) and ``dm.graphics`` (matplotlib, imported when
-drawing) come with the package.
+drawing) come with the package, and so do ``dm.parallel``'s sharded
+serving over ``torch.distributed``, ``dm.tools.profiler``'s trace capture,
+``dm.opcua`` (the network client and server need ``asyncua``) and
+``dm.sysid`` (imported here when ``onnx`` is installed).
 
 Environment (read when an MPC is set up, never at import):
 
@@ -41,5 +44,22 @@ from . import sampling  # noqa: E402
 from . import differentiator  # noqa: E402
 from . import graphics  # noqa: E402
 from . import approximateMPC  # noqa: E402
+
+# optional-dependency gates (reference: do_mpc/__init__.py:79-95)
+try:
+    import onnx as _onnx  # noqa: F401
+    __ONNX_INSTALLED__ = True
+    from . import sysid  # noqa: F401
+except ImportError:
+    __ONNX_INSTALLED__ = False
+
+try:
+    import asyncua as _asyncua  # noqa: F401
+    __ASYNCUA_INSTALLED__ = True
+except ImportError:
+    __ASYNCUA_INSTALLED__ = False
+# namespace/tag plumbing is importable without asyncua (RTClient/RTServer
+# are None in that case)
+from . import opcua  # noqa: E402
 
 __version__ = "0.1.0"

@@ -3,16 +3,20 @@ package's ``approximateMPC/_trainer.py``).
 
 Adam + MSE with a train/validation split, shuffling and plateau learning-rate
 scheduling (reference ``do_mpc/approximateMPC/_trainer.py:38-506``), on the
-policy's device and in its dtype.  Training runs on one device:
-``TrainerSettings.data_parallel`` is accepted and has no effect, as in the
-JAX package on a single device.
+policy's device and in its dtype.  With ``TrainerSettings.data_parallel``
+and a ``torch.distributed`` process group of more than one rank
+(``parallel.init_distributed``), every batch is split over the ranks and
+the gradients are summed with ``all_reduce``, the torch counterpart of the
+JAX package's batch sharding over a device mesh.
 """
 from __future__ import annotations
 
 import os
+import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ._ampcsettings import TrainerSettings
 
@@ -57,6 +61,46 @@ class Trainer:
         def loss_fn(xb, yb):
             return torch.mean((net(xb) - yb) ** 2)
 
+        # Data parallel: every rank holds the same data, seed and weights,
+        # so the shuffles agree (the JAX package's single controller); each
+        # takes its contiguous slice of a batch, and the all-reduced sum of
+        # the slices' mean-loss gradients over the world size is the whole
+        # batch's.  Adam then takes the same step on every rank.
+        world = (dist.get_world_size() if st.data_parallel
+                 and dist.is_available() and dist.is_initialized() else 1)
+        self._world_size = world
+        rank = dist.get_rank() if world > 1 else 0
+        warned_unsharded = False
+
+        def step_loss(xb, yb):
+            """Backward of this rank's share of a batch; the batch's loss."""
+            nonlocal warned_unsharded
+            n_b = xb.shape[0]
+            if world == 1 or n_b % world:
+                if world > 1 and not warned_unsharded:
+                    warned_unsharded = True
+                    warnings.warn(
+                        f"data_parallel=True but batch size {n_b} is not "
+                        f"divisible by the world size {world}; this (and "
+                        "any further such) batch runs unsharded. Choose "
+                        "batch_size as a multiple of the world size.")
+                loss = loss_fn(xb, yb)
+                loss.backward()
+                return loss.detach()
+            k = n_b // world
+            sl = slice(rank * k, (rank + 1) * k)
+            loss = loss_fn(xb[sl], yb[sl])
+            loss.backward()
+            flat = torch.cat([p.grad.reshape(-1) for p in params]
+                             + [loss.detach().reshape(1)])
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+            flat /= world
+            i = 0
+            for p in params:
+                p.grad.copy_(flat[i:i + p.numel()].view_as(p))
+                i += p.numel()
+            return flat[-1]
+
         best_val = np.inf
         patience = 0
         lr_mult = 1.0
@@ -78,15 +122,14 @@ class Trainer:
                 yb = Ytr[i * bs:(i + 1) * bs]
                 before = [p.detach().clone() for p in params]
                 opt.zero_grad(set_to_none=True)
-                loss = loss_fn(xb, yb)
-                loss.backward()
+                loss = step_loss(xb, yb)
                 opt.step()
                 # the global norm of this step's parameter change
                 upd_norm = torch.sqrt(sum(
                     ((p.detach() - b) ** 2).sum()
                     for p, b in zip(params, before)))
                 loss_h, norm_h = torch.stack(
-                    [loss.detach().double(), upd_norm.double()]).tolist()
+                    [loss.double(), upd_norm.double()]).tolist()
                 ep_loss += loss_h
                 ep_norm += norm_h
             ep_loss /= steps_per_epoch

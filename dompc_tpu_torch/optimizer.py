@@ -109,6 +109,22 @@ class OCPLayout:
         o = self.offsets[key]
         return np.arange(o, o + self.sizes[key])
 
+    def stage_ranges(self, n_stages):
+        """Return [(start, end)] covering each stage group (entries must be
+        added stage-sorted)."""
+        ranges = []
+        for k in range(n_stages):
+            idxs = [self.offsets[key] for key in self.offsets
+                    if self.stage_of[key] == k]
+            if not idxs:
+                ranges.append((0, 0))
+                continue
+            start = min(idxs)
+            end = max(self.offsets[key] + self.sizes[key]
+                      for key in self.offsets if self.stage_of[key] == k)
+            ranges.append((start, end))
+        return ranges
+
 
 # ---------------------------------------------------------------------------
 # collocation stage residual
@@ -369,6 +385,14 @@ class Optimizer:
         def epsterm_fun(eps):
             return torch.dot(pen(eps), eps)
         self._epsterm_fun = epsterm_fun
+
+    def compile_nlp(self, overwrite=False, cname=None, libname=None,
+                    compiler_command=None):
+        """API-compatibility no-op for the reference's experimental gcc
+        codegen (do_mpc/optimizer.py:678-729).  The port's only compiled
+        code is its band kernels, which ``nvcc`` builds into ``build/`` at
+        their first launch and reuses from there, keyed by a hash of their
+        sources and flags: the role of the reference's cached ``.so``."""
 
     # --------------------------------------------------------------- tvp/p --
     def get_tvp_template(self):

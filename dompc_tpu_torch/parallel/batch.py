@@ -1,16 +1,26 @@
-"""Batched NMPC solves (PyTorch port of the JAX package's
+"""Batched and sharded NMPC solves (PyTorch port of the JAX package's
 ``parallel/batch.py``).
 
 One batch-first interior-point solve serves a whole batch of (x0, w0)
 problem instances of one MPC: every iteration evaluates the B instances'
 derivatives together and sweeps all their KKT chains in one band-kernel
 launch.  Each instance's result is the one it would get alone.
+
+Across devices the idiom is torch's one process per device, joined into a
+``torch.distributed`` process group (:func:`init_distributed`), where the
+JAX package runs one process over a device mesh: :func:`make_sharded_solver`
+gives each rank a contiguous block of the batch and gathers the results
+on every rank.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from .._config import resolve_device
 from ..solver.ipm import IPMSettings, IPMSolution, make_ipm_solver
 
 
@@ -163,3 +173,113 @@ def make_shift_fn(mpc):
                 sol.zl[..., iz], sol.zu[..., iz])
 
     return shift
+
+
+def init_distributed(coordinator_address=None, num_processes=None,
+                     process_id=None):
+    """Join this process to the ``torch.distributed`` process group.
+
+    Arguments default to the JAX package's environment variables
+    (``COORDINATOR_ADDRESS`` as ``host:port``, ``NUM_PROCESSES``,
+    ``PROCESS_ID``); without an address the call does nothing and returns
+    False.  Otherwise the group is made over ``tcp://<address>`` with NCCL
+    on the card and gloo when ``DOMPC_TPU_PLATFORM=cpu``; on the card the
+    local device ``process_id % torch.cuda.device_count()`` is selected
+    first, so that every MPC set up afterwards lives on it, and the group
+    is bound to it (NCCL makes its communicator here, not inside the first
+    solve).  One process per device, started by any launcher that sets the
+    three variables (no ``torchrun`` needed).  Returns True."""
+    coordinator_address = (coordinator_address
+                           or os.environ.get("COORDINATOR_ADDRESS"))
+    if coordinator_address is None:
+        return False
+    if num_processes is None:
+        num_processes = int(os.environ.get("NUM_PROCESSES", 1))
+    if process_id is None:
+        process_id = int(os.environ.get("PROCESS_ID", 0))
+    kw = {}
+    if resolve_device().type == "cuda":
+        local = process_id % torch.cuda.device_count()
+        torch.cuda.set_device(local)
+        backend = "nccl"
+        kw["device_id"] = torch.device("cuda", local)
+    else:
+        backend = "gloo"
+    dist.init_process_group(backend,
+                            init_method=f"tcp://{coordinator_address}",
+                            world_size=num_processes, rank=process_id, **kw)
+    return True
+
+
+def batch_mesh(n_devices=None, axis_name="batch"):
+    """A 1-D ``DeviceMesh`` named ``axis_name`` over every rank of the
+    process group, where the JAX package makes a ``Mesh`` over the first
+    ``n_devices`` devices.  With one process per device, a mesh over fewer
+    ranks would leave the others outside the collectives of
+    :func:`make_sharded_solver`, so ``n_devices`` other than the world size
+    raises ``ValueError``.  Every rank calls it; it needs
+    :func:`init_distributed` first."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("batch_mesh needs a process group: call "
+                           "init_distributed first")
+    n = dist.get_world_size()
+    if n_devices is not None and int(n_devices) != n:
+        raise ValueError(f"batch_mesh over {n_devices} ranks: the mesh "
+                         f"spans the whole process group of {n} ranks")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return DeviceMesh(device_type, list(range(n)),
+                      mesh_dim_names=(axis_name,))
+
+
+def make_sharded_solver(mpc, mesh=None, tol=1e-6, max_iter=60,
+                        axis_name="batch", use_structured=True,
+                        throughput_mode=False, warm=False):
+    """Shard the batch axis over the ranks of a 1-D mesh.
+
+    Returns ``(solve, mesh)``.  Every rank passes the global batch,
+    ``solve(x0s, w0s)``, or with ``warm=True`` ``solve(x0s, w0s, lam0s,
+    mu0s, zl0s, zu0s)`` for receding-horizon warm starts (``mu0s`` a scalar
+    or (B,)).  Each rank solves its contiguous block of B / size rows with
+    its own :func:`make_batch_solver` on its device, and every rank returns
+    the global ``(u0s (B, n_u), iterations (B,), n_ok)``: u0s and the
+    iterations gathered over the mesh, ``n_ok`` the success count summed
+    over it (the JAX package's ``psum``).  A batch the mesh size does not
+    divide raises ``ValueError``.
+    """
+    if mesh is None:
+        mesh = batch_mesh(axis_name=axis_name)
+    group = mesh.get_group(axis_name)
+    size = mesh.size()
+    rank = mesh.get_local_rank(axis_name)
+    solve_batch = make_batch_solver(mpc, tol=tol, max_iter=max_iter,
+                                    use_structured=use_structured,
+                                    throughput_mode=throughput_mode)
+
+    def gather(local):
+        parts = [torch.empty_like(local) for _ in range(size)]
+        dist.all_gather(parts, local.contiguous(), group=group)
+        return torch.cat(parts)
+
+    n_args = 6 if warm else 2
+
+    def solve(x0s, w0s, *warm_args):
+        if 2 + len(warm_args) != n_args:
+            raise TypeError(f"solve takes {n_args} arrays (warm={warm}), "
+                            f"got {2 + len(warm_args)}")
+        B = x0s.shape[0]
+        if B % size:
+            raise ValueError(f"batch {B} is not divisible by the mesh size "
+                             f"{size}")
+        k = B // size
+        sl = slice(rank * k, (rank + 1) * k)
+        rows = [a if a is None or np.ndim(a) == 0 else a[sl]
+                for a in (x0s, w0s) + warm_args]
+        sol, u0 = solve_batch(*rows)
+        n_ok = sol.success.to(torch.float32).sum()
+        dist.all_reduce(n_ok, op=dist.ReduceOp.SUM, group=group)
+        return gather(u0), gather(sol.iterations), n_ok
+
+    solve.solve_batch = solve_batch
+    return solve, mesh

@@ -1,7 +1,7 @@
 """Structure / utility tools (numpy-only copies of the JAX package's
 ``tools``: :class:`StructSpec`, :class:`NumStruct`, :class:`FieldAccessor`,
-:class:`Timer`, the pickle helpers and the progress bar) plus the torch
-profiler hook."""
+:class:`Timer`, the pickle helpers and the progress bar) plus
+``profiler``, the torch profiler's annotations and trace capture."""
 import pickle
 
 from ._structure import StructSpec, NumStruct, FieldAccessor, Structure

@@ -403,3 +403,122 @@ def test_trainer_epoch_on_card_matches_cpu(monkeypatch):
     for key in ("train_loss", "val_loss", "update_norm"):
         np.testing.assert_allclose(hist[0][key], hist[1][key], rtol=1e-5,
                                    err_msg=key)
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_sharded_matches_batch_on_card(monkeypatch):
+    """``init_distributed`` makes a one-rank NCCL group on the card and
+    ``make_sharded_solver`` then equals ``make_batch_solver`` on the whole
+    batch (the oscillating masses, float64, B=8): u0 to 1e-12, the same
+    iterations, n_ok = B."""
+    import torch.distributed as dist
+    import dompc_tpu_torch as tdm
+    from dompc_tpu_torch.parallel import (init_distributed,
+                                          make_sharded_solver,
+                                          make_batch_solver,
+                                          initial_guess_from_x0)
+    _needs_card()
+    _port_env(monkeypatch)
+    mpc = tdm.systems.oscillating_masses_mpc(
+        tdm.systems.oscillating_masses_model())
+    x0s = 0.4 * np.random.default_rng(0).standard_normal((8, 4))
+    w0s = initial_guess_from_x0(mpc, x0s)
+    assert init_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        assert dist.get_backend() == "nccl"
+        solve, mesh = make_sharded_solver(mpc, tol=1e-6,
+                                          throughput_mode=True)
+        u, it, n_ok = solve(x0s, w0s)
+    finally:
+        dist.destroy_process_group()
+    sol, u_ref = make_batch_solver(mpc, tol=1e-6, throughput_mode=True)(
+        x0s, w0s)
+    assert u.device.type == "cuda" and float(n_ok) == 8
+    assert torch.equal(it, sol.iterations)
+    assert float((u - u_ref).abs().max()) <= 1e-12
+
+
+@pytest.mark.cuda
+def test_trace_counts_band_qr_on_card(monkeypatch, tmp_path):
+    """A profiled warm batched call (the oscillating masses through the
+    structured KKT, float32) writes a trace whose band_qr kernel events
+    equal the wrapper's launches; the device-memory snapshot is
+    non-empty."""
+    import json
+    import pickle
+    import dompc_tpu_torch as tdm
+    from dompc_tpu_torch.parallel import (make_batch_solver,
+                                          initial_guess_from_x0)
+    from dompc_tpu_torch.tools import profiler
+    _needs_card()
+    _port_env(monkeypatch, x64=False)
+    mpc = tdm.systems.oscillating_masses_mpc(
+        tdm.systems.oscillating_masses_model())
+    x0s = 0.4 * np.random.default_rng(0).standard_normal((8, 4))
+    solve = make_batch_solver(mpc, tol=1e-3, throughput_mode=True)
+    sol, _ = solve(x0s, initial_guess_from_x0(mpc, x0s))
+    before = band_qr.band_solve.launches
+    with profiler.trace(str(tmp_path)):
+        with profiler.annotate("unit.warm_call"):
+            solve(x0s * 1.001, sol.w, sol.lam, 1e-4, sol.zl, sol.zu)
+            torch.cuda.synchronize()
+    launches = band_qr.band_solve.launches - before
+    assert launches > 0
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    assert any(e.get("name") == "unit.warm_call" for e in events)
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "band_qr" in e.get("name", "")]
+    assert len(kernels) == launches
+    mem = tmp_path / "mem.pkl"
+    profiler.save_device_memory_profile(str(mem))
+    with open(mem, "rb") as f:
+        assert pickle.load(f)["segments"]
+
+
+@pytest.mark.cuda
+def test_structured_and_onnx_ops_on_card_match_cpu():
+    """``solver.structured`` and ``sysid.ONNXOperations`` on CUDA tensors
+    equal the same calls on CPU tensors (float64, 1e-12)."""
+    from types import SimpleNamespace
+    from dompc_tpu_torch.solver import structured
+    from dompc_tpu_torch.sysid import ONNXOperations
+    _needs_card()
+    ops = ONNXOperations()
+    rng = np.random.default_rng(5)
+    S, b = 21, 13
+    D = rng.standard_normal((S, b, b)) + 3.0 * b * np.eye(b)
+    U, Lo = rng.standard_normal((2, S - 1, b, b))
+    rhs = rng.standard_normal((S, b))
+    X, W = rng.standard_normal((4, 6)), rng.standard_normal((6, 3))
+    gemm_attr = [SimpleNamespace(name="alpha", f=0.5),
+                 SimpleNamespace(name="transA", i=1)]
+
+    def run(device):
+        def T(a):
+            return torch.as_tensor(a, dtype=torch.float64, device=device)
+        band = [T(a) for a in (D, U, Lo)]
+        outs = [structured.band_matvec(*band, T(rhs)),
+                structured.band_solve(structured.band_factor(*band),
+                                      band[1], band[2], T(rhs)),
+                structured.band_solve_qr(*band, T(rhs)),
+                ops.Tanh(T(X)), ops.Sigmoid(T(X)), ops.Relu(T(X)),
+                ops.Elu(T(X)), ops.MatMul(T(X), T(W)),
+                ops.Add(T(X), T(X), 1.0), ops.Gemm(T(X), T(X),
+                                                   attribute=gemm_attr),
+                ops.Concat(T(X), T(X)), ops.Unsqueeze(T(X), axes=[1]),
+                ops.Slice(T(X), [3], [0], axes=[0], steps=[-1]),
+                ops.Reshape(T(X), np.array([2, -1]))]
+        assert all(o.device.type == device for o in outs)
+        return [o.cpu().numpy() for o in outs]
+
+    for got, ref in zip(run("cuda"), run("cpu")):
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12)

@@ -195,3 +195,14 @@ def test_cstr_stage_residual_matches(mpcs):
         got = mt._stage_g(*[_t(v) for v in args]).numpy()
         np.testing.assert_allclose(got, ref, rtol=TOL,
                                    atol=TOL * np.abs(ref).max())
+
+
+def test_cstr_stage_ranges_match(mpcs):
+    """``OCPLayout.stage_ranges`` on the N=10 flagship layout (one stage past
+    the last gives the empty range) and the ``compile_nlp`` no-op."""
+    mj, mt = mpcs
+    n = max(mj.layout.stage_of.values()) + 2
+    ranges = mt.layout.stage_ranges(n)
+    assert ranges == mj.layout.stage_ranges(n)
+    assert ranges[-1] == (0, 0) and ranges[0][0] == 0
+    assert mt.compile_nlp() is None
