@@ -5,16 +5,21 @@
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: both band kernels from dompc_tpu_torch/csrc (band_qr.cu and
-   band_sweep_tiled.cu with band_core.cuh; one nvcc per source, started
-   together, sm_90a), with the build seconds and ptxas's registers,
-   shared memory and spills for every template instance; the flagship
-   instances (row bucket 13) must not spill;
-3. kernels against their plain version: band_qr in float32 and float64,
-   band_sweep_tiled in float32, at the flagship shape (9 chains, S=21,
+2. build: the band kernels from dompc_tpu_torch/csrc (band_qr.cu and
+   band_sweep_tiled.cu with band_core.cuh, and band_qr_wide.cu; one nvcc
+   per source, started together, sm_90a), with the build seconds and
+   ptxas's registers, shared memory and spills for every template
+   instance; the flagship instances (row bucket 13) and band_qr_wide's
+   must not spill;
+3. kernels against their plain version: band_solve in float32 and
+   float64 (band_qr for b <= 32, band_qr_wide above), band_sweep_tiled in
+   float32, at the flagship shape (9 chains, S=21,
    b=13, t=12), a batch of 128 flagship problems (1152 chains), the
    flagship's width at S=101, the rotating-masses MHE's chain (1 chain,
-   S=11, b=83, t=2), the double inverted pendulum's chain (1, 101, 23, 1)
+   S=11, b=83, t=2; band_qr_wide, also with a 1e22 diagonal in float32,
+   beside row bucket 64 at b=50, (9, 21, 84, 24) in float64 and the two
+   sweeps of a SPIKE solve of a 48-stage b=83 chain: wide_cases()), the
+   double inverted pendulum's chain (1, 101, 23, 1)
    and the two sweeps of its SPIKE solve (13 segments (13, 7, 23, 47),
    the reduced system (1, 12, 23, 1)), the chains of phases 13-14
    (ZOO_SHAPES: row buckets 8, 13, 16 and 32) and 1e22 diagonal entries
@@ -62,10 +67,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    rotating-masses MHE at full width (N=10, 399 variables, p_est = Theta_1)
    for 1 step on a seeded plant measurement, with the default KKT (dense
    at this size) and with kkt_solver="tridiag" (one chain, S=11, b=83, the
-   estimated parameter in the root border: band_qr's row bucket 97);
+   estimated parameter in the root border: band_qr_wide's row bucket 97);
    every step certifies, the backends agree, the card agrees with the
-   port on the CPU at equal iterations, band_qr launches under tridiag
-   only and is held against its plain version on step 0's sweeps; (b) the
+   port on the CPU at equal iterations, band_solve launches under tridiag
+   only, every launch band_qr_wide's, held against its plain version on
+   step 0's sweeps, with the step's ms; (b) the
    coupled MHE + MPC loop of tests/test_mhe_rotating_masses.py:14-44 (1
    of its 5 steps, seed 99) on the card against the port on the CPU, with
    ms per MPC, plant and MHE step and band_qr's launches per module;
@@ -196,6 +202,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 MEM_BW = 3.35e12                     # H100 SXM HBM3 bytes/s (data sheet)
 PEAK = {"float32": 67e12,            # H100 SXM FP32 outside tensor cores
         "float64": 34e12}            # H100 SXM FP64 outside tensor cores
+PEAK_FP64_TENSOR = 67e12             # H100 SXM FP64 tensor cores
+
+
+def kernel_peak(kname, dname):
+    """The card's peak operations/s for a kernel's work: band_qr_wide runs
+    its trailing products on the FP64 tensor cores (in both dtypes), the
+    other kernels on the CUDA cores of their dtype."""
+    return PEAK_FP64_TENSOR if kname == "band_qr_wide" else PEAK[dname]
 
 
 def fail(msg):
@@ -236,9 +250,11 @@ def cuda_ms(fn, reps):
 # report no spills for them
 FLAGSHIP_INSTANCES = ("band_qr<float,13>", "band_qr<double,13>",
                       "band_sweep_tiled<13>")
-# the instances the rotating-masses MHE launches (b=83, row bucket 97):
-# reported, not gated
-MHE_INSTANCES = ("band_qr<float,97>", "band_qr<double,97>")
+# the instances the rotating-masses MHE launches (b=83, row bucket 97) and
+# the rest of band_qr_wide's (row bucket 64): ptxas must report no spills
+# for them either
+MHE_INSTANCES = ("band_qr_wide<float,97>", "band_qr_wide<double,97>",
+                 "band_qr_wide<float,64>", "band_qr_wide<double,64>")
 # the instances the DIP launches (b=23, row bucket 32): reported, not gated
 DIP_INSTANCES = ("band_qr<float,32>", "band_qr<double,32>")
 # the instances Lotka-Volterra's relaxation (b=8) and the kinematic bicycle
@@ -334,23 +350,47 @@ BAND_CASES = {
 }
 
 
+def wide_cases():
+    """band_qr_wide's cases beyond BAND_CASES' mhe_rotating (bounds as
+    there): row bucket 64 (b=50); the MHE's band with a 1e22 diagonal in
+    float32; (9, 21, 84, 24) in float64, BBD chains with a 24-column
+    border at b=84; and the two sweeps of a SPIKE solve of the MHE's b=83
+    chain at 48 stages (an MHE horizon of 47), their shapes from the
+    port's partition rule (bbd._spike_parts, on the CPU)."""
+    from dompc_tpu_torch.solver.bbd import spike_shapes
+    seg, red = spike_shapes(83, 2)
+    return {"float32": [("bucket64", (1, 11, 50, 2), False, 1e-4, 1e-5),
+                        ("mhe_rotating_1e22", (1, 11, 83, 2), True, 1e-3,
+                         1e-3)],
+            "float64": [("bucket64", (1, 11, 50, 2), False, 1e-12, 1e-13),
+                        ("bbd_b84", (9, 21, 84, 24), False, 1e-12, 1e-13),
+                        ("mhe_spike_seg", seg, False, 1e-12, 1e-13),
+                        ("mhe_spike_red", red, False, 1e-12, 1e-13)]}
+
+
 def kernel_phase():
-    """Both kernels against the plain version on the BAND_CASES."""
+    """The kernels against the plain version on the BAND_CASES (and, for
+    band_solve, wide_cases()).  band_solve's rows name the kernel it
+    launched for their b (band_qr, or band_qr_wide above b = 32)."""
     import torch
     from dompc_tpu_torch.solver import band_qr
     from dompc_tpu_torch.solver.bbd import band_matvec
     from dompc_tpu_torch.tools.band_probe import device_ms
 
-    kernels = [("band_qr", band_qr.band_solve, BAND_CASES),
+    extra = wide_cases()
+    kernels = [("band_qr", band_qr.band_solve,
+                {d: BAND_CASES[d] + extra[d] for d in BAND_CASES}),
                ("band_sweep_tiled", band_qr.band_solve_tiled,
                 {"float32": BAND_CASES["float32"]})]
     rows = []
-    for kname, kernel, table in kernels:
+    for kname0, kernel, table in kernels:
         for dname, cases in table.items():
             dt = getattr(torch, dname)
             for seed, (name, shape, huge, rel_max, res_max) in \
                     enumerate(cases):
                 N, S, b, t = shape
+                kname = band_qr.qr_kernel(b) if kname0 == "band_qr" \
+                    else kname0
                 D, U, Lo, rhs = [torch.as_tensor(a, dtype=dt, device="cuda")
                                  for a in band_case(*shape, seed, huge)]
                 x = kernel(D, U, Lo, rhs)
@@ -382,7 +422,8 @@ def kernel_phase():
                 lib_ms = cuda_ms(lambda: torch.linalg.solve(A, B), 3)
                 del A, B
                 nbytes, flops = band_work(N, S, b, t, x.element_size())
-                bound = max(nbytes / MEM_BW, flops / PEAK[dname]) * 1e3
+                peak = kernel_peak(kname, dname)
+                bound = max(nbytes / MEM_BW, flops / peak) * 1e3
                 plan = (band_qr.tiled_plan(b, t) if kname == "band_sweep_tiled"
                         else band_qr.qr_plan(b, t, dt))
                 row = dict(kernel=kname, case=name, dtype=dname,
@@ -394,7 +435,7 @@ def kernel_phase():
                            plain_ms=plain_ms,
                            library_ms=lib_ms, bound_ms=bound,
                            bound_by="bytes" if nbytes / MEM_BW
-                           >= flops / PEAK[dname] else "operations",
+                           >= flops / peak else "operations",
                            bytes=nbytes, flops=flops, ok=ok,
                            plan=plan._asdict())
                 print(f"{kname} " + json.dumps(row), flush=True)
@@ -1211,6 +1252,7 @@ def mhe_run(ys, kkt_solver, record=False):
     dev = mhe._device
     steps, recorded = [], []
     band_qr.band_solve.launches = 0
+    band_qr.band_solve.wide_launches = 0
     band_qr.band_solve_tiled.launches = 0
     for k, y in enumerate(ys):
         _sync(dev)
@@ -1227,7 +1269,9 @@ def mhe_run(ys, kkt_solver, record=False):
     return dict(
         kkt_solver=kkt_solver, device=str(dev), setup_s=setup_s,
         n_opt_x=mhe.n_opt_x, steps=steps,
-        launches={"band_qr": band_qr.band_solve.launches,
+        launches={"band_qr": band_qr.band_solve.launches
+                  - band_qr.band_solve.wide_launches,
+                  "band_qr_wide": band_qr.band_solve.wide_launches,
                   "band_sweep_tiled": band_qr.band_solve_tiled.launches},
         structure=None if asm is None else [asm.C, asm.S, asm.b, asm.R],
         recorded=recorded)
@@ -1259,19 +1303,24 @@ def coupled_loop_run(n_steps=LOOP_STEPS):
     rec = {k: [] for k in ("u", "y", "x", "p_est", "mpc_ms", "sim_ms",
                            "mhe_ms", "mpc_iters", "mhe_iters",
                            "mpc_success", "mhe_success")}
-    launches = {"mpc": 0, "sim": 0, "mhe": 0}
+    launches = {"mpc": 0, "sim": 0, "mhe": 0}      # band_qr.cu's
+    wide = {"mpc": 0, "sim": 0, "mhe": 0}          # band_qr_wide's
 
     def timed(name, fn, arg):
         n0 = band_qr.band_solve.launches
+        w0 = band_qr.band_solve.wide_launches
         _sync(dev)
         t1 = time.perf_counter()
         out = np.asarray(fn(arg)).reshape(-1)
         _sync(dev)
         rec[name + "_ms"].append((time.perf_counter() - t1) * 1e3)
-        launches[name] += band_qr.band_solve.launches - n0
+        dw = band_qr.band_solve.wide_launches - w0
+        launches[name] += band_qr.band_solve.launches - n0 - dw
+        wide[name] += dw
         return out
 
     band_qr.band_solve.launches = 0
+    band_qr.band_solve.wide_launches = 0
     band_qr.band_solve_tiled.launches = 0
     for _ in range(n_steps):
         u0 = timed("mpc", mpc.make_step, x0)
@@ -1283,7 +1332,7 @@ def coupled_loop_run(n_steps=LOOP_STEPS):
         for name, obj in (("mpc", mpc), ("mhe", mhe)):
             rec[f"{name}_iters"].append(obj.solver_stats["iter_count"])
             rec[f"{name}_success"].append(bool(obj.solver_stats["success"]))
-    rec.update(launches=launches, device=str(dev),
+    rec.update(launches=launches, wide_launches=wide, device=str(dev),
                tiled_launches=band_qr.band_solve_tiled.launches,
                mpc_kkt=("condensed" if hasattr(mpc, "_kkt_structure_cond")
                         else "bbd" if hasattr(mpc, "_kkt_structure")
@@ -1343,14 +1392,16 @@ def mhe_f64():
             check(gpu["structure"] == [1, 11, 83, 1],
                   f"MHE tridiag structure {gpu['structure']} (want one "
                   "chain, S=11, b=83, R=1)")
-            check(n["band_qr"] > 0 and n["band_sweep_tiled"] == 0,
-                  f"MHE tridiag: launches {n}")
+            # band_solve's launches, every one of them band_qr_wide's
+            check(n["band_qr_wide"] > 0 and n["band_qr"] == 0
+                  and n["band_sweep_tiled"] == 0,
+                  f"MHE tridiag: launches {n} (want all band_qr_wide)")
             row["kkt"] = check_recorded(gpu["recorded"], "band_qr",
                                         band_qr.band_solve,
                                         "float64 MHE tridiag step 0")
         else:
             check(gpu["structure"] is None and n["band_qr"] == 0
-                  and n["band_sweep_tiled"] == 0,
+                  and n["band_qr_wide"] == 0 and n["band_sweep_tiled"] == 0,
                   f"MHE auto at {gpu['n_opt_x']} variables: structure "
                   f"{gpu['structure']}, launches {n} (want the dense KKT)")
         print("mhe " + json.dumps(row), flush=True)
@@ -1382,8 +1433,8 @@ def mhe_f64():
     rel = {k: _rel_max(gpu[k], cpu[k]) for k in ("u", "y", "x")}
     rel["p_est"] = _p_rel(gpu["p_est"], cpu["p_est"])
     loop = {k: gpu[k] for k in ("mpc_ms", "sim_ms", "mhe_ms", "mpc_iters",
-                                "mhe_iters", "launches", "tiled_launches",
-                                "mpc_kkt", "mhe_kkt")}
+                                "mhe_iters", "launches", "wide_launches",
+                                "tiled_launches", "mpc_kkt", "mhe_kkt")}
     loop.update(wall_s=wall, card_vs_cpu=rel, cpu_mpc_iters=cpu["mpc_iters"],
                 cpu_mhe_iters=cpu["mhe_iters"], cpu_mpc_ms=cpu["mpc_ms"],
                 cpu_sim_ms=cpu["sim_ms"], cpu_mhe_ms=cpu["mhe_ms"],
@@ -3285,8 +3336,8 @@ def main():
             print(f"  ptxas: {json.dumps(rep)}", flush=True)
             ptxas[rep["instance"]] = rep
     for inst in MHE_INSTANCES:
-        print(f"  ptxas bucket 97 (MHE, b=83): {json.dumps(ptxas.get(inst))}",
-              flush=True)
+        print(f"  ptxas band_qr_wide (MHE, b=83, and bucket 64): "
+              f"{json.dumps(ptxas.get(inst))}", flush=True)
     for inst in DIP_INSTANCES:
         print(f"  ptxas bucket 32 (DIP, b=23): {json.dumps(ptxas.get(inst))}",
               flush=True)
@@ -3294,12 +3345,11 @@ def main():
         print(f"  ptxas buckets 8/16 (LV b=8, bicycle b=15): "
               f"{json.dumps(ptxas.get(inst))}", flush=True)
     if ptxas:   # empty only when build/ already held both libraries
-        for inst in FLAGSHIP_INSTANCES:
+        for inst in FLAGSHIP_INSTANCES + MHE_INSTANCES:
             rep = ptxas.get(inst)
             check(rep is not None and rep["spill_stores"] == 0
                   and rep["spill_loads"] == 0,
-                  f"ptxas: flagship instance {inst} spills or is missing: "
-                  f"{rep}")
+                  f"ptxas: instance {inst} spills or is missing: {rep}")
 
     # 3. kernels against their plain version
     say("kernels against their plain version:")
@@ -3517,6 +3567,33 @@ def main():
                 for path, rec in (("minlp_scalar_f64", minlp["scalar"]),
                                   ("lotka_volterra_f64", minlp["lv"]),
                                   ("minlp_scalar_f32", minlp32_rec))}
+    # band_qr_wide: band_solve's kernel above b = 32; its main path is
+    # phase 10's tridiag MHE (b=83, float64), so its numbers are those of
+    # the MHE's chain (1, 11, 83, 2) in float64
+    wide = next(r for r in rows if r["kernel"] == "band_qr_wide"
+                and r["case"] == "mhe_rotating" and r["dtype"] == "float64")
+    kernels.append({
+        "name": "band_qr_wide", "route": "cuda",
+        "source": "dompc_tpu_torch/csrc/band_qr_wide.cu",
+        "replaces": "dompc_tpu/solver/pallas_band.py:244",
+        "launches": mhe["tridiag"]["launches"]["band_qr_wide"],
+        "max_abs_err": wide["max_abs_err"], "ms": wide["ms"],
+        "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
+        "bound_by": wide["bound_by"], "library_ms": wide["library_ms"],
+        "wrapper_ms": wide["wrapper_ms"],
+        "ns_per_column_step": wide["ns_per_column_step"],
+        "cases": {f"{r['case']}_{r['dtype']}": {k: r[k] for k in (
+            "shape", "ms", "wrapper_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "max_abs_err", "residual")}
+            for r in rows if r["kernel"] == "band_qr_wide"},
+        "launches_by_path": {
+            "mhe_f64_tridiag": mhe["tridiag"]["launches"]["band_qr_wide"],
+            "mhe_f64_auto_dense": mhe["auto"]["launches"]["band_qr_wide"],
+            **{f"coupled_loop_f64_{mod}": n
+               for mod, n in cpl["wide_launches"].items()}},
+        "mhe_f64_tridiag_step_ms": mhe["tridiag"]["ms"],
+        "ptxas": [ptxas.get(i) for i in MHE_INSTANCES],
+        "kkt_sweeps": [mhe["tridiag"]["kkt"]]})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

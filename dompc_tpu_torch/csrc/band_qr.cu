@@ -1,6 +1,8 @@
-// Banded Householder-QR sweep over N independent block-tridiagonal chains,
-// float and double: one thread block per chain, one panel column per
-// thread, the column's rows in registers.
+// Banded Householder-QR sweep over N independent block-tridiagonal chains
+// with narrow blocks (b <= 32), float and double: one thread block per
+// chain, one panel column per thread, the column's rows in registers.
+// Wider blocks (33 <= b <= 97) go to band_qr_wide.cu, whose panel lives in
+// shared memory (solver/band_qr.py:qr_kernel decides from b).
 //
 // Solves  A_n x_n = r_n  for every chain n, where A_n has diagonal blocks
 // D (S, b, b), super-diagonal blocks U (S-1, b, b) (stage k rows, stage k+1
@@ -19,7 +21,9 @@
 //   * A block of W = 3b + t threads rounded up to 32 (64 at the flagship
 //     b = 13, t = 12); thread p owns one panel column and keeps its 2b
 //     rows in registers, in a row bucket MB >= b fixed by the template
-//     (instances 4, 8, 13, 16, 32, 64, 97, in float and double).
+//     (instances 4, 8, 13, 16, 32, in float and double; band_core.cuh's
+//     buckets 64 and 97 are built here no more: their 2b rows a thread
+//     spilled to local memory, and band_qr_wide.cu takes those widths).
 //   * One __syncthreads per column step: the owner of pivot j writes the
 //     reflector (v, beta) into one of two shared slots, alternating by the
 //     parity of the step, the block synchronizes, every thread reads v
@@ -30,9 +34,9 @@
 //     cp.async into each thread's own staging slots; the factors go to the
 //     global scratch F and come back, prefetched, for the back
 //     substitution, whose products are spread over all threads.
-//   * More right-hand sides than a block of qr_max_threads(MB) (256, or
-//     320 for the widest bucket) can hold are split over blockIdx into
-//     chunks (only at widths no system of the repository builds).
+//   * More right-hand sides than a block of qr_max_threads(MB) (256) can
+//     hold are split over blockIdx into chunks (only at widths no system
+//     of the repository builds).
 //
 // What bounds it on an H100: latency, neither bytes nor flops.  At the
 // flagship (S=21, b=13, t=12) a chain reads and writes ~67 KB in float and
@@ -89,9 +93,7 @@ static int launch(const T* D, const T* U, const T* Lo, const T* rhs, T* x, T* F,
     case 13: return launch_rows<T, 13>(D, U, Lo, rhs, x, F, N, S, b, t, p, s);
     case 16: return launch_rows<T, 16>(D, U, Lo, rhs, x, F, N, S, b, t, p, s);
     case 32: return launch_rows<T, 32>(D, U, Lo, rhs, x, F, N, S, b, t, p, s);
-    case 64: return launch_rows<T, 64>(D, U, Lo, rhs, x, F, N, S, b, t, p, s);
-    case 97: return launch_rows<T, 97>(D, U, Lo, rhs, x, F, N, S, b, t, p, s);
-  }
+  }  // wider buckets: band_qr_wide.cu
   return (int)cudaErrorInvalidValue;
 }
 

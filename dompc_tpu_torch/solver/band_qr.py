@@ -1,4 +1,4 @@
-"""Block-tridiagonal chain solves: the two hand-written CUDA sweeps, their
+"""Block-tridiagonal chain solves: the hand-written CUDA sweeps, their
 plain PyTorch version, their launch plans, and the launch counters.
 
 Both wrappers solve N independent block-tridiagonal systems with t
@@ -9,22 +9,29 @@ if the build or the launch fails; on a CPU tensor they run the plain
 version :func:`band_solve_qr_multi`.  There is no fallback between the
 two.
 
-* :func:`band_solve` launches ``csrc/band_qr.cu`` (float and double), which
-  replaces the TPU kernels ``_band_fwd_kernel`` and ``_band_bwd_kernel`` of
-  the JAX package's ``solver/pallas_band.py``: one thread block per chain,
-  one panel column per thread;
+* :func:`band_solve` replaces the TPU kernels ``_band_fwd_kernel`` and
+  ``_band_bwd_kernel`` of the JAX package's ``solver/pallas_band.py``
+  (float and double) with one of two kernels, chosen from b before the
+  launch (:func:`qr_kernel`): ``csrc/band_qr.cu`` for b <= 32 (one thread
+  block per chain, one panel column per thread, in registers) and
+  ``csrc/band_qr_wide.cu`` for 33 <= b <= 97 (one block per chain, the
+  panel in shared memory, blocked Householder with a compact-WY trailing
+  update streamed in column tiles);
 * :func:`band_solve_tiled` launches ``csrc/band_sweep_tiled.cu`` (float
   only), which replaces ``_band_sweep_kernel`` of the same file: one warp
   per chain, G chains per block, each lane owning ``tiled_cols`` panel
   columns, the pivot column exchanged with warp shuffles.
 
-Both keep each thread's panel columns in registers, in a row bucket (a
-template instance of the kernel) chosen from b by :func:`row_bucket`; the
-column-step machinery is ``csrc/band_core.cuh``, shared by both sources.
-A column step is the same scaled Householder reflector as on the TPU; the
-kernels are bound by the S*b dependent column steps of a chain, not by
-bytes or flops, and use neither tensor cores nor TMA (a 26-row panel takes
-rank-1 updates in full precision; its blocks are not 16-byte sized).
+``band_qr.cu`` and the tiled kernel keep each thread's panel columns in
+registers, in a row bucket (a template instance of the kernel) chosen from
+b by :func:`row_bucket`; their column-step machinery is
+``csrc/band_core.cuh``, shared by both sources.  A column step is the same
+scaled Householder reflector as on the TPU in every kernel; the kernels
+are bound by the S*b dependent column steps of a chain, not by bytes.  The
+narrow kernels use neither tensor cores nor TMA (a 13-wide block is not
+16-byte sized); ``band_qr_wide`` runs its trailing products on the
+float64 tensor cores (never TF32: the 1e22-diagonal barrier chains need
+full precision).
 :func:`qr_plan` and :func:`tiled_plan` mirror the launchers' plans in the
 CUDA sources, which check the plan they are given against their own.  The
 notes at the top of each CUDA source give the design and bound.
@@ -45,6 +52,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = {"band_qr": _CSRC / "band_qr.cu",
+           "band_qr_wide": _CSRC / "band_qr_wide.cu",
            "band_sweep_tiled": _CSRC / "band_sweep_tiled.cu"}
 HEADERS = (_CSRC / "band_core.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -52,6 +60,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SMEM_MAX = 232448            # dynamic shared memory one H100 block may use
 ROW_BUCKETS = (4, 8, 13, 16, 32, 64, 97)   # kernel instances (band_core.cuh)
+NARROW_MAX = 32              # band_qr.cu's widest bucket; band_qr_wide.cu above
+WIDE_THREADS = 512           # a band_qr_wide block (csrc/band_qr_wide.cu)
 TILED_MAX_G = 4              # chains (warps) per block of the tiled kernel
 TILED_MIN_BLOCKS = 3         # its __launch_bounds__: 3 blocks of 4 warps an SM
 
@@ -102,11 +112,12 @@ def band_solve_qr_multi(D, U, Lo, rhs):
 class Plan(NamedTuple):
     """A kernel launch: ``rows`` the row bucket (kernel instance),
     ``width`` the physical panel columns of one group (band_qr: threads a
-    block; tiled: 32 lanes times ``tiled_cols``), ``chunk``/``chunks`` the
-    right-hand sides a group solves and the groups a chain takes,
-    ``buffers`` the staging buffers (2 when they fit: prefetch one stage
-    ahead), ``G`` the groups (chains) a block, ``smem`` the dynamic shared
-    bytes a block."""
+    block; tiled: 32 lanes times ``tiled_cols``; band_qr_wide: the threads
+    of its block), ``chunk``/``chunks`` the right-hand sides a group solves
+    and the groups a chain takes, ``buffers`` the staging buffers (2 when
+    they fit: prefetch one stage, or one column tile, ahead), ``G`` the
+    groups (chains) a block, ``smem`` the dynamic shared bytes a block,
+    ``tile`` band_qr_wide's trailing-update tile width (0 elsewhere)."""
     rows: int
     width: int
     chunk: int
@@ -114,6 +125,7 @@ class Plan(NamedTuple):
     buffers: int
     G: int
     smem: int
+    tile: int = 0
 
 
 def row_bucket(b):
@@ -128,6 +140,12 @@ def row_bucket(b):
 def qr_max_threads(rows):
     """Threads a ``band_qr`` block of a row bucket may have."""
     return max(256, (3 * rows + 1 + 31) // 32 * 32)
+
+
+def qr_kernel(b):
+    """The kernel :func:`band_solve` launches for band width b:
+    ``"band_qr"`` (b <= 32) or ``"band_qr_wide"`` (33 <= b <= 97)."""
+    return "band_qr_wide" if row_bucket(b) > NARROW_MAX else "band_qr"
 
 
 def tiled_cols(rows):
@@ -177,11 +195,43 @@ def _fit(b, t, width, itemsize, tcp, nch, rows):
         n += 1
 
 
+def _wide_words(b, nt, nbuf, itemsize):
+    # the panel (column stride: 4 times an odd number >= 2b), beta and R's
+    # diagonal, then the larger of the packed Gram matrix and nbuf tile
+    # buffers (2b rows) and W (b rows), rows of nt + 32 / itemsize words
+    # (csrc/band_qr_wide.cu:plan_words)
+    q = (2 * b + 3) // 4
+    ldp = 4 * (q + 1 - q % 2)
+    ldc = nt + 32 // itemsize
+    tiles = nbuf * _quad(2 * b * ldc) + _quad(b * ldc)
+    return _quad(ldp * b) + 2 * _quad(b) + max(_quad(b * (b - 1) // 2), tiles)
+
+
+def wide_plan(b, t, dtype):
+    """Launch plan of ``band_qr_wide`` (33 <= b <= 97): one block of
+    ``WIDE_THREADS`` per chain, all t right-hand sides in one chunk (the
+    trailing columns stream through shared memory in tiles of ``tile``
+    columns: the widest of 32, 16 and 8 that fits, with two ``buffers``
+    when they fit, else one)."""
+    rows = row_bucket(b)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    for nt in (32, 16, 8):
+        for nbuf in (2, 1):
+            smem = itemsize * _wide_words(b, nt, nbuf, itemsize)
+            if smem <= SMEM_MAX:
+                return Plan(rows, WIDE_THREADS, t, 1, nbuf, 1, smem, nt)
+    raise ValueError(f"band_solve: panel (b={b}) exceeds one block's shared "
+                     "memory")
+
+
 def qr_plan(b, t, dtype):
-    """Launch plan of ``band_qr``: one block of ``width`` threads (3b + t
-    rounded up to 32) per chain and right-hand-side chunk.  Raises
+    """Launch plan of the kernel :func:`band_solve` launches: for b <= 32
+    ``band_qr``, one block of ``width`` threads (3b + t rounded up to 32)
+    per chain and right-hand-side chunk; above, :func:`wide_plan`.  Raises
     ValueError for panels no instance takes."""
     rows = row_bucket(b)
+    if rows > NARROW_MAX:
+        return wide_plan(b, t, dtype)
     itemsize = torch.empty((), dtype=dtype).element_size()
     tcp, nch = _chunk(t, qr_max_threads(rows) - 3 * b)
     width, tcp, nch, nbuf, words = _fit(b, t, 0, itemsize, tcp, nch, rows)
@@ -272,24 +322,23 @@ def build():
     return out
 
 
-_INSTANCE = (re.compile(r"band_qr_kernelI([fd])Li(\d+)E"),
-             re.compile(r"band_sweep_tiled_kernelILi(\d+)E"))
+_INSTANCE = re.compile(
+    r"(band_qr|band_qr_wide|band_sweep_tiled)_kernelI(?:([fd])Li|Li)(\d+)E")
 
 
 def ptxas_report(log):
     """Per kernel instance, what ``nvcc -Xptxas -v`` reported: registers,
     static shared bytes, stack frame and spill bytes.  Returns a list of
-    dicts with an ``instance`` label such as ``band_qr<float,13>`` or
-    ``band_sweep_tiled<13>``."""
+    dicts with an ``instance`` label such as ``band_qr<float,13>``,
+    ``band_qr_wide<double,97>`` or ``band_sweep_tiled<13>``."""
     rows, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            qr, tl = (p.search(name) for p in _INSTANCE)
-            label = (f"band_qr<{'float' if qr.group(1) == 'f' else 'double'}"
-                     f",{qr.group(2)}>" if qr else
-                     f"band_sweep_tiled<{tl.group(1)}>" if tl else name)
+            k = _INSTANCE.search(name)
+            dt = k and {"f": "float,", "d": "double,", None: ""}[k.group(2)]
+            label = f"{k.group(1)}<{dt}{k.group(3)}>" if k else name
             cur = dict(instance=label, registers=None, smem=0, stack=0,
                        spill_stores=0, spill_loads=0)
             rows.append(cur)
@@ -314,6 +363,9 @@ _ARGTYPES = {
     "band_qr": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                 + [ctypes.c_void_p],
                 ("band_qr_solve_f32", "band_qr_solve_f64")),
+    "band_qr_wide": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                     + [ctypes.c_void_p],
+                     ("band_qr_wide_solve_f32", "band_qr_wide_solve_f64")),
     "band_sweep_tiled": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                          + [ctypes.c_void_p], ("band_sweep_tiled_f32",)),
 }
@@ -365,16 +417,20 @@ def _stream(dev):
 
 def launcher(name, D, U, Lo, rhs, chains_per_tile=None):
     """(launch, x): a function that launches kernel ``name``
-    (``"band_qr"`` or ``"band_sweep_tiled"``) once on the given contiguous
+    (``"band_qr"``, ``"band_qr_wide"`` (each for the widths of
+    :func:`qr_kernel`) or ``"band_sweep_tiled"``) once on the given contiguous
     CUDA inputs, into the solution ``x`` and a factor scratch allocated
     here, on the current stream; it raises if the launch is refused.  It
     neither checks the inputs nor counts: the wrappers do both, and
     ``chip_smoke.py`` times the kernel's device time with it."""
     N, S, b, t = rhs.shape
-    if name == "band_qr":
+    if name in ("band_qr", "band_qr_wide"):
+        if name != qr_kernel(b):
+            raise ValueError(f"{name} does not take b={b}: {qr_kernel(b)} "
+                             "does")
         plan = qr_plan(b, t, D.dtype)
-        fn = _load(name).band_qr_solve_f32 if D.dtype == torch.float32 \
-            else _load(name).band_qr_solve_f64
+        suffix = "f32" if D.dtype == torch.float32 else "f64"
+        fn = getattr(_load(name), f"{name}_solve_{suffix}")
         extra = ()
     else:
         plan = tiled_plan(b, t, chains_per_tile)
@@ -397,9 +453,12 @@ def launcher(name, D, U, Lo, rhs, chains_per_tile=None):
 
 
 def band_solve(D, U, Lo, rhs):
-    """Solve the chains: the band-QR kernel for CUDA tensors, the plain
-    version for CPU tensors.  Counts kernel launches in
-    ``band_solve.launches``."""
+    """Solve the chains: a band-QR kernel for CUDA tensors (``band_qr``
+    for b <= 32, ``band_qr_wide`` for 33 <= b <= 97, decided from the
+    shape before the launch: one function, two launch plans, no fallback
+    between them), the plain version for CPU tensors.  Counts the launches
+    of both kernels in ``band_solve.launches``, and those of
+    ``band_qr_wide`` also in ``band_solve.wide_launches``."""
     N, S, b, t = _check(D, U, Lo, rhs)
     if D.device.type == "cpu":
         return band_solve_qr_multi(D, U, Lo, rhs)
@@ -407,9 +466,12 @@ def band_solve(D, U, Lo, rhs):
         raise ValueError(f"band_solve: unsupported device {D.device}")
     if not all(a.is_contiguous() for a in (D, U, Lo, rhs)):
         raise ValueError("band_solve: CUDA inputs must be contiguous")
-    launch, x = launcher("band_qr", D, U, Lo, rhs)
+    name = qr_kernel(b)
+    launch, x = launcher(name, D, U, Lo, rhs)
     launch()
     _band_solve.launches += 1
+    if name == "band_qr_wide":
+        _band_solve.wide_launches += 1
     return x
 
 
@@ -418,6 +480,7 @@ def band_solve(D, U, Lo, rhs):
 # inputs, say) still counts on the real wrapper
 _band_solve = band_solve
 band_solve.launches = 0
+band_solve.wide_launches = 0
 
 
 def band_solve_tiled(D, U, Lo, rhs, chains_per_tile=None):

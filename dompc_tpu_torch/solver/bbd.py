@@ -650,6 +650,16 @@ def _spike_parts(S, dtype, backend, n_refine):
     return n_parts, n_refine
 
 
+def spike_shapes(b, t, S=48, dtype=torch.float64):
+    """The two sweeps of a SPIKE solve of one chain of S stages, b wide with
+    t right-hand sides, on the card (the partition of :func:`_spike_parts`,
+    the layout of ``batchqr.band_solve_spike_impl``): segments
+    (P, L, b, 2b + t) and the reduced system (1, P - 1, b, t)."""
+    P, _ = _spike_parts(S, dtype, "pallas", 0)
+    L = -(-(S - (P - 1)) // P)
+    return (P, L, b, 2 * b + t), (1, P - 1, b, t)
+
+
 def chain_sweep(b, device, backend, n_parts):
     """The chain sweep ``bbd_solve`` takes, decided from the shape before any
     launch: (sweep, plain_route).  On the card a band wider than the

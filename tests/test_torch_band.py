@@ -264,8 +264,8 @@ def test_qr_plan_flagship(dtype, smem):
     (4, 12, torch.float64, 4, 32, 1, 2), (5, 12, torch.float64, 8, 32, 1, 2),
     (16, 12, torch.float32, 16, 64, 1, 2), (17, 12, torch.float32, 32, 64,
                                               1, 2),
-    (97, 1, torch.float32, 97, 320, 1, 1),     # the widest float32 b
-    (69, 1, torch.float64, 97, 224, 1, 1),     # the widest float64 b
+    (97, 1, torch.float32, 97, 512, 1, 2),     # band_qr_wide's widest b:
+    (69, 1, torch.float64, 97, 512, 1, 2),     # 512 threads, one chunk
     (18, 200, torch.float64, 32, 160, 2, 2),   # split to fit shared memory
     (23, 47, torch.float32, 32, 128, 1, 2),    # the DIP's SPIKE segments:
     (23, 47, torch.float64, 32, 128, 1, 2),    # 2b + t columns, one chunk
@@ -275,7 +275,11 @@ def test_qr_plan_buckets_chunks_and_widest(b, t, dtype, rows, width,
     plan = band_qr.qr_plan(b, t, dtype)
     assert (plan.rows, plan.width, plan.chunks, plan.buffers) == \
         (rows, width, chunks, buffers)
-    assert 3 * b + plan.chunk <= plan.width <= band_qr.qr_max_threads(rows)
+    if rows > band_qr.NARROW_MAX:
+        assert plan.width == band_qr.WIDE_THREADS and plan.chunk == t
+    else:
+        assert 3 * b + plan.chunk <= plan.width <= \
+            band_qr.qr_max_threads(rows)
     assert plan.smem <= band_qr.SMEM_MAX
 
 
@@ -292,6 +296,156 @@ def test_qr_plan_accepts_what_the_one_block_panel_did():
                     band_qr.qr_plan(b, t, dtype)
     with pytest.raises(ValueError):
         band_qr.qr_plan(98, 1, torch.float32)
+
+
+def _wy_model(D, U, Lo, rhs, nt=32):
+    """A torch model of csrc/band_qr_wide.cu's arithmetic: per elimination
+    the scaled Householder reflectors of the (m, b) panel (stored as V,
+    beta, and R's diagonal alpha * max|x|), T by doubling from G = V'V
+    (sibling blocks A, B: T_AB = -T_AA G_AB T_BB), then the trailing
+    columns [Uhat 0 rhat; D U r] in tiles of nt as W = V'C, W = T'W,
+    C -= V W; the top rows are [R | B | C | c], the bottom rows the carry.
+    Back substitution with the |d| > 1e-30 guard as a multiplication by
+    1 / d."""
+    N, S, b, t = rhs.shape
+    dt = rhs.dtype
+    F = []
+    top = (D[:, 0], U[:, 0] if S > 1 else None, rhs[:, 0])
+    for e in range(S):
+        last = e == S - 1
+        Dh, Uh, rh = top
+        if last:
+            Pn, Cn = Dh.clone(), rh.clone()
+        else:
+            Pn = torch.cat([Dh, Lo[:, e]], dim=1)
+            zero = D.new_zeros((N, b, b))
+            U_n = U[:, e + 1] if e + 1 < S - 1 else zero
+            Cn = torch.cat([torch.cat([Uh, zero, rh], dim=2),
+                            torch.cat([D[:, e + 1], U_n, rhs[:, e + 1]],
+                                      dim=2)], dim=1)
+        m = Pn.shape[1]
+        rows = torch.arange(m)
+        V = Pn.new_zeros((N, m, b))
+        beta = Pn.new_zeros((N, b))
+        rdiag = Pn.new_zeros((N, b))
+        for p in range(b):
+            x = torch.where(rows >= p, Pn[:, :, p], 0.0)
+            amax = x.abs().amax(dim=1)
+            inv = torch.where(amax > 0, 1 / amax, 0.0)
+            v = x * inv[:, None]
+            sigma = (v * v).sum(dim=1)
+            xp = v[:, p]
+            alpha = -torch.where(xp >= 0, 1.0, -1.0) * sigma.sqrt()
+            vtv = sigma - xp * xp + (xp - alpha) ** 2
+            beta[:, p] = torch.where(vtv > 1e-30, 2 / vtv, 0.0)
+            v[:, p] = xp - alpha
+            V[:, :, p] = v
+            rdiag[:, p] = alpha * amax
+            w = torch.einsum("nr,nrc->nc", v, Pn[:, :, p + 1:])
+            Pn[:, :, p + 1:] -= (beta[:, p, None] * w)[:, None, :] \
+                * v[:, :, None]
+        R = torch.triu(Pn[:, :b], 1) + torch.diag_embed(rdiag)
+        G = V.transpose(1, 2) @ V
+        T = torch.diag_embed(beta)
+        w = 1                           # T by doubling, as the kernel
+        while w < b:
+            for a in range(0, b - w, 2 * w):
+                A, B = slice(a, a + w), slice(a + w, min(a + 2 * w, b))
+                T[:, A, B] = -T[:, A, A] @ (G[:, A, B] @ T[:, B, B])
+            w *= 2
+        for c0 in range(0, Cn.shape[2], nt):
+            C = Cn[:, :, c0:c0 + nt]
+            W = V.transpose(1, 2) @ C
+            W = T.transpose(1, 2) @ W
+            Cn[:, :, c0:c0 + nt] = C - V @ W
+        if last:
+            F.append((R, None, None, Cn[:, :b]))
+        else:
+            F.append((R, Cn[:, :b, :b], Cn[:, :b, b:2 * b], Cn[:, :b, 2 * b:]))
+            top = (Cn[:, b:, :b], Cn[:, b:, b:2 * b], Cn[:, b:, 2 * b:])
+    xs = [None] * S
+    for k in range(S - 1, -1, -1):
+        R, B, C, c = F[k]
+        y = c.clone()
+        if k + 1 < S:
+            y -= B @ xs[k + 1]
+        if k + 2 < S:
+            y -= C @ xs[k + 2]
+        d = torch.diagonal(R, dim1=1, dim2=2)
+        dinv = 1 / torch.where(d.abs() > 1e-30, d, torch.full_like(d, 1e-30))
+        x = torch.zeros_like(y)
+        for i in range(b - 1, -1, -1):
+            x[:, i] = (y[:, i] - (R[:, i, i + 1:, None] * x[:, i + 1:])
+                       .sum(dim=1)) * dinv[:, i, None]
+        xs[k] = x
+    return torch.stack(xs, dim=1).to(dt)
+
+
+@pytest.mark.parametrize("shape,nt", [((2, 11, 83, 2), 32),
+                                      ((1, 6, 50, 168), 32),
+                                      ((1, 4, 97, 20), 16)])
+def test_wide_wy_model_matches_jax_twin_f64(shape, nt):
+    """band_qr_wide's blocked-WY elimination, modelled in torch, against
+    the JAX package's bbd.band_solve_qr_multi at the rotating-masses MHE's
+    band (b=83), a SPIKE-segment-like width (2b + t columns) and the widest
+    float64 bucket with its 16-column tiles: float64, 1e-12 relative."""
+    arrays = _case(*shape, seed=sum(shape))
+    ref = jax.vmap(jax_band_multi)(*[jnp.asarray(a) for a in arrays])
+    got = _wy_model(*_torch(arrays, torch.float64), nt=nt)
+    assert _rel(got.numpy(), ref) <= 1e-12
+
+
+def test_wide_wy_model_extreme_scales_f32():
+    """The model in float32 at the MHE's band with a 1e22 diagonal entry on
+    every stage (tests/test_pallas_band.py:126-147): finite, operator
+    residual below 1e-3."""
+    D, U, Lo, rhs = _case(1, 11, 83, 2, seed=3)
+    D[:, :, 0, 0] = 1e22
+    D, U, Lo, rhs = _torch((D, U, Lo, rhs), torch.float32)
+    got = _wy_model(D, U, Lo, rhs)
+    assert bool(torch.isfinite(got).all())
+    assert _resid(D, U, Lo, got, rhs) < 1e-3
+
+
+def _wide_words(b, nt, nbuf, itemsize):
+    """csrc/band_qr_wide.cu:plan_words, written out region by region."""
+    quad = lambda n: (n + 3) // 4 * 4                       # noqa: E731
+    ldp = next(4 * o for o in range(1, 200, 2) if 4 * o >= 2 * b)
+    ldc = nt + 32 // itemsize
+    panel = quad(ldp * b)
+    vectors = 2 * quad(b)                                   # beta, R's diag
+    gram = quad(b * (b - 1) // 2)
+    tiles = nbuf * quad(2 * b * ldc) + quad(b * ldc)        # C (xnbuf), W
+    return panel + vectors + max(gram, tiles)
+
+
+def test_wide_plan_mirror():
+    """band_qr_wide's plan at every b in 33..97, both dtypes and a range of
+    t: 512 threads, one chunk of all t right-hand sides whatever t, row
+    bucket 64 or 97, the widest tile of 32, 16, 8 that fits (two buffers
+    before one), shared bytes within SMEM_MAX; qr_plan and the kernel
+    choice agree."""
+    for dtype, itemsize in ((torch.float32, 4), (torch.float64, 8)):
+        for b in range(33, 98):
+            nt, nbuf = next((n, k) for n in (32, 16, 8) for k in (2, 1)
+                            if itemsize * _wide_words(b, n, k, itemsize)
+                            <= band_qr.SMEM_MAX)
+            for t in (1, 2, 24, 168, 1000):
+                plan = band_qr.wide_plan(b, t, dtype)
+                assert plan == band_qr.qr_plan(b, t, dtype)
+                assert band_qr.qr_kernel(b) == "band_qr_wide"
+                assert plan == band_qr.Plan(
+                    rows=64 if b <= 64 else 97, width=band_qr.WIDE_THREADS,
+                    chunk=t, chunks=1, buffers=nbuf, G=1,
+                    smem=itemsize * _wide_words(b, nt, nbuf, itemsize),
+                    tile=nt)
+                assert plan.smem <= band_qr.SMEM_MAX
+    assert band_qr.wide_plan(83, 2, torch.float32)[4:] == (2, 1, 124176, 32)
+    assert band_qr.wide_plan(83, 2, torch.float64)[4:] == (1, 1, 187264, 32)
+    assert band_qr.wide_plan(97, 2, torch.float64)[4:] == (2, 1, 231296, 16)
+    assert band_qr.qr_kernel(32) == "band_qr"
+    with pytest.raises(ValueError):
+        band_qr.wide_plan(98, 1, torch.float64)
 
 
 def test_ptxas_report_parses_instances():

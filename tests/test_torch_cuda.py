@@ -124,13 +124,64 @@ def test_kernels_huge_diagonal_on_card(kernel):
 
 @pytest.mark.cuda
 def test_kernel_widest_bucket_f64_on_card():
-    """float64 at the widest panel the wrapper takes in float64 (b = 69,
-    row bucket 97, one staging buffer): the float64 bounds."""
+    """float64 at b = 69 (row bucket 97, band_qr_wide): the float64
+    bounds."""
     _needs_card()
     D, U, Lo, rhs = _case(2, 3, 69, 1, seed=69, dtype=torch.float64)
     assert band_qr.qr_plan(69, 1, torch.float64).rows == 97
     res, err = _errors(D, U, Lo, rhs, band_qr.band_solve(D, U, Lo, rhs))
     assert res < 1e-12 and err < 1e-12
+
+
+# band_qr_wide's shapes: both buckets and their edges (b = 32|33, 64|65,
+# 97), S = 1, 2 and long, one right-hand side to many (2b + t: a SPIKE
+# segment of the MHE's b=83 chain), 16- and 32-column tiles in float64
+WIDE_SHAPES = [(1, 3, 33, 4), (2, 4, 64, 3), (2, 4, 65, 3), (1, 11, 83, 2),
+               (2, 3, 97, 1), (1, 1, 50, 3), (2, 2, 50, 3), (6, 8, 83, 168),
+               (1, 5, 84, 24), (1, 21, 40, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_wide_kernel_matches_twin_on_card(dtype, shape):
+    """band_solve above b = 32 launches band_qr_wide (counted in both
+    launches and wide_launches) and agrees with the plain version on a CPU
+    copy within the bounds of test_kernel_matches_twin_on_card."""
+    _needs_card()
+    dt = getattr(torch, dtype)
+    D, U, Lo, rhs = _case(*shape, seed=sum(shape) + 3, dtype=dt)
+    before = (band_qr.band_solve.launches, band_qr.band_solve.wide_launches)
+    x = band_qr.band_solve(D, U, Lo, rhs)
+    torch.cuda.synchronize()
+    assert (band_qr.band_solve.launches,
+            band_qr.band_solve.wide_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    res, err = _errors(D, U, Lo, rhs, x)
+    tol = 1e-4 if dt == torch.float32 else 1e-12
+    assert res < tol and err < tol
+
+
+@pytest.mark.cuda
+def test_wide_kernel_huge_diagonal_and_counter_on_card():
+    """band_qr_wide with a 1e22 diagonal in float32 at the MHE's band:
+    finite, residual and error below 1e-3; a narrow band (b = 13) counts
+    in launches only."""
+    _needs_card()
+    D, U, Lo, rhs = _case(1, 11, 83, 2, seed=83, dtype=torch.float32,
+                          huge=True)
+    x = band_qr.band_solve(D, U, Lo, rhs)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(x).all())
+    res, err = _errors(D, U, Lo, rhs, x)
+    assert res < 1e-3 and err < 1e-3
+    before = (band_qr.band_solve.launches, band_qr.band_solve.wide_launches)
+    band_qr.band_solve(*_case(9, 21, 13, 12, seed=1, dtype=torch.float32))
+    assert (band_qr.band_solve.launches,
+            band_qr.band_solve.wide_launches) == (before[0] + 1, before[1])
+    with pytest.raises(ValueError):
+        band_qr.launcher("band_qr", *_case(1, 2, 40, 1, seed=2,
+                                           dtype=torch.float32))
 
 
 @pytest.mark.cuda

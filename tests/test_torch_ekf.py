@@ -7,10 +7,9 @@
 * a port Simulator and EKF continue from the JAX pair's state
   (``interop.load_loop_state``);
 * the semantics of ``test_ekf_adaptive_tolerance_sweep``
-  (``tests/test_ekf_lqr.py:85-100``) on the port alone;
-* a continuous model (the CSTR), whose covariance propagates through the
-  adaptive Radau integrator with a ``jacfwd`` nested in the stage
-  Jacobian: 2 steps within 1e-9 of JAX.
+  (``tests/test_ekf_lqr.py:85-100``) on the port alone.
+
+The continuous CSTR EKF is in ``tests/test_torch_ekf_continuous.py``.
 """
 import numpy as np
 import pytest
@@ -151,35 +150,3 @@ def test_ekf_adaptive_tolerance_sweep():
     assert errs[0] < 1e-2
     x_fixed = _run_ekf_steps(1e-10, 1e-10, adaptive=False, substeps=8)
     assert np.max(np.abs(x_fixed - x_ref)) < 1e-5
-
-
-def _cstr_ekf(dm, systems):
-    model = systems.cstr_model()
-    ekf = dm.estimator.EKF(model)
-    ekf.settings.t_step = 0.005
-    p = ekf.get_p_template()
-    p["alpha"] = 1.0
-    p["beta"] = 1.0
-    ekf.set_p_fun(lambda t: p)
-    ekf.setup()
-    ekf.x0 = np.array([0.8, 0.5, 134.14, 130.0])
-    ekf.P0 = np.diag([0.01, 0.01, 1.0, 1.0])
-    ekf.set_initial_guess()
-    return ekf
-
-
-def test_continuous_ekf_matches_jax():
-    Q = np.diag([1e-4, 1e-4, 1e-2, 1e-2])
-    R = np.diag([1e-3, 1e-3, 1e-1, 1e-1])
-    u = np.array([[18.0], [-4500.0]])
-    ys = [np.array([0.85, 0.52, 134.0, 129.8]),
-          np.array([0.9, 0.55, 133.9, 129.6])]
-    out = []
-    for dm, systems in ((jdm, jsys), (tdm, tsys)):
-        ekf = _cstr_ekf(dm, systems)
-        for y in ys:
-            ekf.make_step(y_next=y, u_next=u, Q_k=Q, R_k=R)
-        out.append(ekf)
-    assert _rel(out[1].data._x, out[0].data._x) <= 1e-9
-    assert _rel(out[1].P0, out[0].P0) <= 1e-9
-    assert out[1].adaptive_steps >= 1

@@ -4,19 +4,20 @@
 The flows of the JAX package's own tests, each built once per package
 from the same construction code and run side by side:
 
-* the CSTR LQR (``tests/test_more_examples.py:95-125``: ``linearize`` at
-  the steady state, ``discretize``, a finite-horizon LQR with input-rate
-  penalty, an adaptive ``Simulator`` plant), cut from 200 to 5 steps;
-* the batch reactor (``tests/test_more_examples.py:128-163``:
+* (in ``tests/test_torch_lqr_loops.py``, with this file's helpers) the
+  CSTR LQR (``tests/test_more_examples.py:95-125``: ``linearize`` at the
+  steady state, ``discretize``, a finite-horizon LQR with input-rate
+  penalty, an adaptive ``Simulator`` plant), cut from 200 to 5 steps, and
+  the batch reactor (``tests/test_more_examples.py:128-163``:
   ``dae2odeconversion`` -> ``linearize`` -> ``discretize`` -> LQR, the
   plant the continuous linear model), cut from 50 to 10 steps;
 * ``LinearModel.setup(A, B)`` and ``discretize``
   (``tests/test_model_simulator.py:118-131``);
 * the oscillating masses' infinite-horizon LQR (``tests/test_ekf_lqr.py:
   103-131``: the DARE gain by doubling, a discrete plant), 50 steps;
-* ``dae2odeconversion`` of the double inverted pendulum (parameters,
-  time-varying parameters, vector states): the right-hand side and its
-  Jacobians at a seeded point;
+* (in ``tests/test_torch_lqr_loops.py``) ``dae2odeconversion`` of the
+  double inverted pendulum (parameters, time-varying parameters, vector
+  states): the right-hand side and its Jacobians at a seeded point;
 * the classic systems (CSTR, batch reactor, Lotka-Volterra): the models'
   Jacobians and the MPCs' transcriptions.
 
@@ -151,34 +152,6 @@ def _same_loop(j, t, lqr_j, lqr_t, sim_j, sim_t):
                     getattr(lqr_j.data, attr)) <= TOL, attr
 
 
-def test_cstr_lqr_closed_loop_matches_jax():
-    lin_j, dc_j, lqr_j, sim_j = _cstr_lqr_loop(jdm, 5)
-    lin_t, dc_t, lqr_t, sim_t = _cstr_lqr_loop(tdm, 5)
-    assert isinstance(lin_t, tdm.model.LinearModel)
-    assert lqr_t.mode == "inputRatePenalization"
-    _same_loop(lin_j, lin_t, lqr_j, lqr_t, sim_j, sim_t)
-    _same_loop(dc_j, dc_t, lqr_j, lqr_t, sim_j, sim_t)
-
-
-def test_batch_reactor_dae2ode_lqr_matches_jax():
-    dae_j, lin_j, lqr_j, sim_j = _batch_reactor_lqr_loop(jdm, 10)
-    dae_t, lin_t, lqr_t, sim_t = _batch_reactor_lqr_loop(tdm, 10)
-    # the converted right-hand side and its Jacobians at a random point
-    rng = np.random.default_rng(4)
-    x, q = rng.standard_normal(5), rng.standard_normal(1)
-    for fn in ("A", "B"):
-        mats = [m.get_linear_system_matrices(x, q)[fn == "B"]
-                for m in (dae_j, dae_t)]
-        assert _rel(mats[1], mats[0]) <= TOL, fn
-    f_t = dae_t._rhs_fun(*(torch.as_tensor(v) for v in
-                           (x, q, np.zeros(0), np.zeros(0), np.zeros(0),
-                            np.zeros(0))))
-    f_j = dae_j._rhs_fun(x, q, np.zeros(0), np.zeros(0), np.zeros(0),
-                         np.zeros(0))
-    assert _rel(f_t.numpy(), f_j) <= TOL
-    _same_loop(lin_j, lin_t, lqr_j, lqr_t, sim_j, sim_t)
-
-
 def test_linear_model_and_discretize_matches_jax():
     A = np.array([[0.0, 1.0], [-2.0, -0.5]])
     B = np.array([[0.0], [1.0]])
@@ -234,29 +207,6 @@ def test_oscillating_masses_dare_lqr_matches_jax():
     K = -np.linalg.solve(Bt.T @ P @ Bt + lqr_t.R, Bt.T @ P @ lqr_t.A_rated)
     assert _rel(lqr_t.K, K) <= 1e-8
     _same_loop(lm_j, lm_t, lqr_j, lqr_t, sim_j, sim_t)
-
-
-def test_dae2ode_with_parameters_matches_jax():
-    """dae2odeconversion of a DAE with parameters, time-varying parameters
-    and matrix-shaped states (the double inverted pendulum): the converted
-    right-hand side and its Jacobians at a seeded point."""
-    import dompc_tpu.systems as jsys
-    import dompc_tpu_torch.systems as tsys
-    conv = [dm.model.dae2odeconversion(sysmod.dip_model())
-            for dm, sysmod in ((jdm, jsys), (tdm, tsys))]
-    rng = np.random.default_rng(6)
-    x, q = rng.standard_normal(conv[0].n_x), rng.standard_normal(1)
-    p, tvp = np.array([0.2, 0.25]), np.array([-0.8])
-    w = np.zeros(conv[0].n_w)
-    f_j = conv[0]._rhs_fun(x, q, np.zeros(0), tvp, p, w)
-    f_t = conv[1]._rhs_fun(*(torch.as_tensor(v) for v in
-                             (x, q, np.zeros(0), tvp, p, w)))
-    assert _rel(f_t.numpy(), f_j) <= TOL
-    for j, t in zip(conv[0].get_linear_system_matrices(x, q, pss=p,
-                                                       tvpss=tvp),
-                    conv[1].get_linear_system_matrices(x, q, pss=p,
-                                                       tvpss=tvp)):
-        assert _rel(t, j) <= TOL
 
 
 @pytest.mark.parametrize("name,has_mpc", [("cstr", True),

@@ -3,8 +3,9 @@ against the JAX package (float64, CPU): ``mpc.make_step`` ->
 ``Simulator.make_step`` -> ``mhe.make_step``, as
 ``tests/test_mhe_rotating_masses.py:14-44`` runs it (seed 99).
 
-* 2 steps at reduced horizons (MPC N=5, MHE N=4; built here with the
-  systems' settings and the shorter horizons): the inputs, the plant, the
+* 2 steps at reduced horizons (MPC N=3, MHE N=3; built here with the
+  systems' settings and the shorter horizons; JAX's compile time grows
+  with them): the inputs, the plant, the
   estimates and the estimated parameter within 1e-8 of JAX, the MPC at
   equal iterations.  The MHE's iterations are not compared: on its warm
   step the JAX package's compiled solver evaluates the measurement rows
@@ -166,8 +167,8 @@ def reduced_loops(_cpu_port):
     for dm, systems in ((jdm, jsys), (tdm, tsys)):
         model = systems.rotating_masses_model()
         out[dm.__name__] = coupled_loop(
-            short_mpc(dm, model, 5), systems.rotating_masses_simulator(model),
-            short_mhe(dm, model, 4), n_steps=2)
+            short_mpc(dm, model, 3), systems.rotating_masses_simulator(model),
+            short_mhe(dm, model, 3), n_steps=2)
     return out["dompc_tpu_torch"], out["dompc_tpu"]
 
 

@@ -12,7 +12,8 @@ the port's, and through both packages' ``MPC.make_step``:
 * bounded-drift RTI and the filter-RTI hybrid over 6 closed-loop steps of
   the discrete plant: per step equal iterations and u0 within 1e-8, every
   step certifies, the hybrid within ``rti_iters + rti_extra_max``;
-* ``make_step`` with ``solver_rti_iters=2`` and with ``solver_tol_loop``;
+* (in ``tests/test_torch_rti_make_step.py``) ``make_step`` with
+  ``solver_rti_iters=2`` and with ``solver_tol_loop``;
 * (slow) the flagship's RTI closed loop against the converged one, the
   counterpart of ``tests/test_rti.py:93-151``.
 """
@@ -187,16 +188,6 @@ def _make_steps(mj, mt, n=2):
         _close(mt.opt_x_num, mj.opt_x_num)
         x = A @ x + BM * float(u_j[0, 0])
     return mj, mt
-
-
-def test_make_step_rti_matches_jax(_cpu_port):
-    mj, mt = _make_steps(*_pair(solver_rti_iters=2))
-    assert mt.solver_stats["iter_count"] == 2     # the warm step
-
-
-def test_make_step_tol_loop_matches_jax(_cpu_port):
-    mj, mt = _make_steps(*_pair(solver_tol=1e-8, solver_tol_loop=1e-4))
-    assert mt.solver_stats["success"]
 
 
 @pytest.mark.slow

@@ -8,12 +8,12 @@ CPU): ``ops/integrators.py``, ``Simulator`` and ``make_step`` + ``Simulator``.
 * ``Simulator.make_step``: ``cstr_simulator`` for 3 steps within 1e-10
   with the same ``Data`` logs, oscillating masses (discrete) for 5 steps
   within 1e-12, and a continuous DAE model with ``init_algebraic_variables``;
-* the robust CSTR flagship at N=5 in closed loop, the port's ``make_step``
-  and ``Simulator`` against JAX's for 3 steps: u0 and the plant within
-  1e-8 at equal iterations;
 * constants cached by ``sym`` and ``optimizer.const_cache`` may be made
   first inside a ``torch.func`` transform (the Radau stage Jacobian and the
   EKF covariance do this): later plain calls neither fail nor differ.
+
+The flagship's closed loop (``make_step`` + ``Simulator``) is in
+``tests/test_torch_closed_loop.py``.
 """
 import sys
 from pathlib import Path
@@ -25,14 +25,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-from __graft_entry__ import _build_cstr_mpc  # noqa: E402
 import dompc_tpu as jdm  # noqa: E402
 import dompc_tpu.systems as jsys  # noqa: E402
 from dompc_tpu.ops import integrators as jint  # noqa: E402
 import dompc_tpu_torch as tdm  # noqa: E402
 import dompc_tpu_torch.systems as tsys  # noqa: E402
-from dompc_tpu_torch.interop import (load_mpc_state,  # noqa: E402
-                                     mpc_state_arrays)
 from dompc_tpu_torch.ops import integrators as tint  # noqa: E402
 from dompc_tpu_torch.optimizer import const_cache  # noqa: E402
 
@@ -215,31 +212,6 @@ def test_dae_simulator_matches_jax():
             sim.make_step(np.array([[0.2 + 0.1 * k]]))
         out.append(sim)
     _same_logs(out[1], out[0], 1e-12)
-
-
-def test_closed_loop_make_step_and_simulator_match_jax():
-    """The flagship at N=5: u0 = mpc.make_step(x0); y = sim.make_step(u0),
-    3 steps in each package from the same state."""
-    mj = _build_cstr_mpc(n_horizon=5)
-    mj.x0 = X_CSTR
-    mj.set_initial_guess()
-    mt = tsys.cstr_robust_mpc(n_horizon=5)
-    load_mpc_state(mt, mpc_state_arrays(mj))
-    loops = []
-    for mpc, pkg in ((mj, jsys), (mt, tsys)):
-        sim = pkg.cstr_simulator(pkg.cstr_model())
-        sim.x0 = X_CSTR
-        x, rows = X_CSTR.copy(), []
-        for _ in range(3):
-            u = mpc.make_step(x)
-            x = sim.make_step(u).ravel()
-            rows.append((np.asarray(u).ravel(), x,
-                         mpc.solver_stats["iter_count"],
-                         mpc.solver_stats["success"]))
-        loops.append(rows)
-    for (u_j, x_j, it_j, ok_j), (u_t, x_t, it_t, ok_t) in zip(*loops):
-        assert ok_t and ok_j and it_t == it_j
-        assert _rel(u_t, u_j) <= 1e-8 and _rel(x_t, x_j) <= 1e-8
 
 
 def test_constants_made_first_inside_a_transform():

@@ -24,9 +24,9 @@ from dompc_tpu.solver.bbd import bbd_solve as jax_bbd_solve
 from dompc_tpu.solver.bbd import band_solve_qr_multi as jax_band_qr
 from dompc_tpu.solver.batchqr import (
     band_solve_spike_impl as jax_spike)
-from dompc_tpu_torch.solver import band_qr, batchqr
+from dompc_tpu_torch.solver import band_qr, batchqr, bbd
 from dompc_tpu_torch.solver.bbd import (bbd_solve, bbd_matvec, band_matvec,
-                                        chain_sweep)
+                                        chain_sweep, spike_shapes)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -182,3 +182,26 @@ def test_chain_sweep_routes_wide_bands_past_the_kernels():
     arrays = [torch.as_tensor(a) for a in _chain_case(1, 50, 3, 2, seed=9)]
     assert _rel(sweep(*arrays).numpy(),
                 band_qr.band_solve_qr_multi(*arrays).numpy()) < 1e-12
+
+
+def test_spike_shapes_are_the_sweeps_of_a_spike_solve(monkeypatch):
+    """bbd.spike_shapes names the two sweeps that band_solve_spike_impl
+    makes on the partition bbd_solve picks for a float64 chain of S
+    stages: the segments (P, L, b, 2b + t) and the reduced system
+    (1, P - 1, b, t); below S = 48 there is no partition to name."""
+    monkeypatch.delenv("DOMPC_TPU_SPIKE", raising=False)
+    for S, (b, t) in ((48, (3, 2)), (101, (2, 1))):
+        shapes = []
+
+        def recording(*args):
+            shapes.append((args[0].shape[:3] + args[3].shape[-1:]))
+            return band_qr.band_solve_qr_multi(*args)
+
+        monkeypatch.setattr(band_qr, "band_solve", recording)
+        arrays = [torch.as_tensor(a) for a in _chain_case(1, S, b, t, 4)]
+        P, _ = bbd._spike_parts(S, torch.float64, "pallas", 0)
+        got = batchqr.band_solve_spike_impl(*arrays, P)
+        assert [tuple(s) for s in shapes] == list(spike_shapes(b, t, S))
+        assert _rel(got.numpy(),
+                    band_qr.band_solve_qr_multi(*arrays).numpy()) < 1e-12
+    assert spike_shapes(83, 2) == ((6, 8, 83, 168), (1, 5, 83, 2))
