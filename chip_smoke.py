@@ -5,15 +5,17 @@
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the band kernels from dompc_tpu_torch/csrc (band_qr.cu and
-   band_sweep_tiled.cu with band_core.cuh, and band_qr_wide.cu; one nvcc
-   per source, started together, sm_90a), with the build seconds and
-   ptxas's registers, shared memory and spills for every template
-   instance; the flagship instances (row bucket 13) and band_qr_wide's
-   must not spill;
+2. build: the band kernels from dompc_tpu_torch/csrc (band_qr.cu with
+   band_core.cuh, band_qr_wide.cu with band_wide.cuh, band_sweep_tiled.cu
+   with both; one nvcc per source, started together, sm_90a), with the
+   build seconds and ptxas's registers, shared memory and spills for
+   every template instance; the flagship instances (row bucket 13),
+   band_qr_wide's and all seven of band_sweep_tiled's must not spill;
 3. kernels against their plain version: band_solve in float32 and
    float64 (band_qr for b <= 32, band_qr_wide above), band_sweep_tiled in
-   float32, at the flagship shape (9 chains, S=21,
+   float32 (with wide_cases()'s float32 rows too; at b >= 17 also at or
+   below torch.linalg.solve and within 1.25x of band_solve's kernel on the
+   same inputs), at the flagship shape (9 chains, S=21,
    b=13, t=12), a batch of 128 flagship problems (1152 chains), the
    flagship's width at S=101, the rotating-masses MHE's chain (1 chain,
    S=11, b=83, t=2; band_qr_wide, also with a 1e22 diagonal in float32,
@@ -170,12 +172,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
    examples/tools/onnx_conversion/onnx_conversion_01.py and
    solver.structured's band_matvec, band_factor + band_solve and
    band_solve_qr on a seeded (S=21, b=13) band, card against CPU to
-   1e-12.
+   1e-12;
+17. the tiled kernel's redesigned buckets on real paths, float32 (the
+   production settings: tol 1e-4, 60 iterations), each path once under
+   DOMPC_TPU_BAND_BACKEND=pallas_tiled and once under the default backend
+   from the same state: phase 10's rotating-masses MHE (tridiag, one
+   chain S=11, b=83: row bucket 97), one step; the dynamic bicycle
+   (condensed, b=21: row bucket 32), 2 steps.  Under pallas_tiled every
+   band sweep is a band_sweep_tiled launch and none is band_qr's or
+   band_qr_wide's, and the recorded sweeps pass the backward-error gate;
+   status, iterations and ms of every step; the estimates (states and
+   p_est) and the inputs finite and within TILED_AGREE of the default
+   backend's.
 
 Every kernel counter is set to 0 just before each path and read just
-after.  Phases 2-7 run one after another in the main process (with
-16a-b, 14's float32 flagship and 13's float32 MINLP); then the float64
-subprocesses of phases 4 and 6, of 8-9 (with 16c-d), of 10 and of 13
+after.  Phases 2-7 run one after another in the main process (with 17
+after 3, 16a-b, 14's float32 flagship and 13's float32 MINLP); then the
+float64 subprocesses of phases 4 and 6, of 8-9 (with 16c-d), of 10 and of 13
 run side by side, and the main process echoes their lines in that
 order, each when its child ends; from phase 11 on, the two
 cold DIP solves run beside each other, the CPU yardstick of phase 11,
@@ -205,11 +218,14 @@ PEAK = {"float32": 67e12,            # H100 SXM FP32 outside tensor cores
 PEAK_FP64_TENSOR = 67e12             # H100 SXM FP64 tensor cores
 
 
-def kernel_peak(kname, dname):
-    """The card's peak operations/s for a kernel's work: band_qr_wide runs
-    its trailing products on the FP64 tensor cores (in both dtypes), the
-    other kernels on the CUDA cores of their dtype."""
-    return PEAK_FP64_TENSOR if kname == "band_qr_wide" else PEAK[dname]
+def kernel_peak(kname, dname, b):
+    """The card's peak operations/s for a kernel's work at band width b:
+    band_qr_wide, and band_sweep_tiled above b = 32 (the same blocked-WY
+    sweep), run their trailing products on the FP64 tensor cores (in both
+    dtypes); the other instances run on the CUDA cores of their dtype."""
+    wide = kname == "band_qr_wide" or (kname == "band_sweep_tiled"
+                                       and b > 32)
+    return PEAK_FP64_TENSOR if wide else PEAK[dname]
 
 
 def fail(msg):
@@ -261,6 +277,11 @@ DIP_INSTANCES = ("band_qr<float,32>", "band_qr<double,32>")
 # (b=15) launch, row buckets 8 and 16: reported, not gated
 ZOO_INSTANCES = ("band_qr<float,8>", "band_qr<double,8>",
                  "band_qr<float,16>", "band_qr<double,16>")
+# every instance of the tiled kernel, one a row bucket (4, 8, 13, 16: a
+# warp a chain; 32, 64, 97: a block a chain): ptxas must report
+# no spills for any of them
+TILED_INSTANCES = tuple(f"band_sweep_tiled<{r}>"
+                        for r in (4, 8, 13, 16, 32, 64, 97))
 
 
 # --------------------------------------------------------------------------
@@ -350,6 +371,13 @@ BAND_CASES = {
 }
 
 
+# the tiled kernel at b >= 17 against band_solve's kernel on the same
+# inputs (band_qr at bucket 32, band_qr_wide above): the two run the same
+# column step (bucket 32) or the same blocked-WY sweep (64, 97), so a
+# tiled launch may take at most this much longer
+TILED_VS_BAND_SOLVE = 1.25
+
+
 def wide_cases():
     """band_qr_wide's cases beyond BAND_CASES' mhe_rotating (bounds as
     there): row bucket 64 (b=50); the MHE's band with a 1e22 diagonal in
@@ -369,9 +397,12 @@ def wide_cases():
 
 
 def kernel_phase():
-    """The kernels against the plain version on the BAND_CASES (and, for
-    band_solve, wide_cases()).  band_solve's rows name the kernel it
-    launched for their b (band_qr, or band_qr_wide above b = 32)."""
+    """The kernels against the plain version on the BAND_CASES and
+    wide_cases() (the tiled kernel: their float32 rows).  band_solve's rows
+    name the kernel it launched for their b (band_qr, or band_qr_wide above
+    b = 32).  Every tiled row with b >= 17 must also be at or below
+    torch.linalg.solve's time and within TILED_VS_BAND_SOLVE of band_solve's
+    kernel on the same shape, both measured here."""
     import torch
     from dompc_tpu_torch.solver import band_qr
     from dompc_tpu_torch.solver.bbd import band_matvec
@@ -381,7 +412,7 @@ def kernel_phase():
     kernels = [("band_qr", band_qr.band_solve,
                 {d: BAND_CASES[d] + extra[d] for d in BAND_CASES}),
                ("band_sweep_tiled", band_qr.band_solve_tiled,
-                {"float32": BAND_CASES["float32"]})]
+                {"float32": BAND_CASES["float32"] + extra["float32"]})]
     rows = []
     for kname0, kernel, table in kernels:
         for dname, cases in table.items():
@@ -422,7 +453,7 @@ def kernel_phase():
                 lib_ms = cuda_ms(lambda: torch.linalg.solve(A, B), 3)
                 del A, B
                 nbytes, flops = band_work(N, S, b, t, x.element_size())
-                peak = kernel_peak(kname, dname)
+                peak = kernel_peak(kname, dname, b)
                 bound = max(nbytes / MEM_BW, flops / peak) * 1e3
                 plan = (band_qr.tiled_plan(b, t) if kname == "band_sweep_tiled"
                         else band_qr.qr_plan(b, t, dt))
@@ -443,7 +474,169 @@ def kernel_phase():
                 check(ok, f"{kname} {dname} {name}: rel {rel:.2e} (bound "
                           f"{rel_max:g}), residual {res:.2e} (bound "
                           f"{res_max:g})")
+    for row in rows:
+        if row["kernel"] != "band_sweep_tiled" or row["shape"][2] < 17:
+            continue
+        qr = next(r for r in rows if r["kernel"] != "band_sweep_tiled"
+                  and r["case"] == row["case"] and r["dtype"] == "float32")
+        row.update(band_solve_kernel=qr["kernel"], band_solve_ms=qr["ms"],
+                   vs_band_solve=row["ms"] / qr["ms"],
+                   vs_library=row["ms"] / row["library_ms"])
+        print("band_sweep_tiled_bounds " + json.dumps(
+            {k: row[k] for k in ("case", "shape", "ms", "library_ms",
+                                 "band_solve_kernel", "band_solve_ms",
+                                 "vs_band_solve", "vs_library")}),
+              flush=True)
+        check(row["vs_library"] <= 1.0
+              and row["vs_band_solve"] <= TILED_VS_BAND_SOLVE,
+              f"band_sweep_tiled {row['case']} {row['shape']}: "
+              f"{row['ms']:.4f} ms against torch.linalg.solve's "
+              f"{row['library_ms']:.4f} and {qr['kernel']}'s {qr['ms']:.4f} "
+              f"(bounds: at or below the first, within "
+              f"{TILED_VS_BAND_SOLVE:g}x of the second)")
     return rows
+
+
+# --------------------------------------------------------------------------
+# phase 17: the tiled kernel's buckets 32 and 97 on real paths, float32
+# --------------------------------------------------------------------------
+
+# float32 production settings (phase 4's, scripts/tpu_smoke.py:39-40)
+F32_SOLVER = dict(solver_tol=1e-4, solver_max_iter=60)
+# The two band backends solve the same float32 problem to the same scaled
+# KKT tolerance (1e-4) with differently rounded sweeps.  As phase 10 holds
+# tridiag against dense to 1e-6 at the float64 tolerance 1e-8 (100 x the
+# tolerance), the estimates and inputs here must agree to 100 x 1e-4,
+# relative to max(1, |value|): the MHE's states and p_est and the
+# bicycle's inputs are unscaled and of order 1.
+TILED_AGREE = 100 * F32_SOLVER["solver_tol"]
+BICYCLE_X0 = np.array([0.0, 0.0, 0.0, 0.1, 0.0, 0.0])  # tests' x0
+TILED_BICYCLE_STEPS = 2
+
+
+@contextlib.contextmanager
+def band_backend_env(backend):
+    """DOMPC_TPU_BAND_BACKEND=backend ("" for the default) while solvers
+    are built: the KKT backend reads it then (main() unsets it first)."""
+    os.environ["DOMPC_TPU_BAND_BACKEND"] = backend
+    try:
+        yield
+    finally:
+        os.environ.pop("DOMPC_TPU_BAND_BACKEND")
+
+
+def bicycle_run(xs=None):
+    """The dynamic bicycle (N=10, condensed KKT, float32 production
+    settings) from the tests' x0: TILED_BICYCLE_STEPS make_step calls, the
+    launch counters zeroed just before them and every band sweep (of
+    either wrapper) recorded.  ``xs``: the states to step from (by default
+    each next one from the plant, dynamic_bicycle_simulator)."""
+    from dompc_tpu_torch.solver import band_qr
+    from dompc_tpu_torch import systems
+    model = systems.dynamic_bicycle_model()
+    mpc = systems.dynamic_bicycle_mpc(model)
+    mpc.settings.kkt_solver = "condensed"
+    for key, val in F32_SOLVER.items():
+        setattr(mpc.settings, key, val)
+    mpc._create_solver()
+    sim = systems.dynamic_bicycle_simulator(model) if xs is None else None
+    x0 = BICYCLE_X0.copy()
+    mpc.x0 = x0
+    if sim is not None:
+        sim.x0 = x0
+    mpc.set_initial_guess()
+    steps, recorded, states = [], [], []
+    band_qr.band_solve.launches = 0
+    band_qr.band_solve_tiled.launches = 0
+    for k in range(TILED_BICYCLE_STEPS):
+        x0 = x0 if xs is None else np.asarray(xs[k])
+        states.append(x0.tolist())
+        _sync(mpc._device)
+        t1 = time.perf_counter()
+        with recording("band_solve", recorded), \
+                recording("band_solve_tiled", recorded):
+            u0 = np.asarray(mpc.make_step(x0)).reshape(-1)
+        _sync(mpc._device)
+        st = mpc.solver_stats
+        steps.append(dict(ms=(time.perf_counter() - t1) * 1e3,
+                          iters=st["iter_count"], success=st["success"],
+                          kkt_err=st["kkt_err"], u0=u0.tolist()))
+        if sim is not None:
+            x0 = np.asarray(sim.make_step(u0.reshape(-1, 1))).reshape(-1)
+    return dict(steps=steps, states=states, recorded=recorded,
+                launches={"band_qr": band_qr.band_solve.launches,
+                          "band_sweep_tiled":
+                          band_qr.band_solve_tiled.launches},
+                chains=sorted({tuple(r[3].shape) for r in recorded}))
+
+
+def tiled_paths_phase():
+    """Phase 17 (float32, main process): the paths that reach the tiled
+    kernel's redesigned buckets.  (a) Phase 10's rotating-masses MHE
+    (N=10, one chain S=11, b=83: row bucket 97), tridiag, one step under
+    DOMPC_TPU_BAND_BACKEND=pallas_tiled and one under the default backend,
+    from the same state and measurement; (b) the dynamic bicycle (condensed,
+    b=21: row bucket 32), TILED_BICYCLE_STEPS steps under each backend from
+    the same states.  Under pallas_tiled every band sweep is a
+    band_sweep_tiled launch (none of band_qr or band_qr_wide), and its
+    recorded sweeps pass check_recorded; under the default none is; the
+    results are finite and agree within TILED_AGREE."""
+    from dompc_tpu_torch.solver import band_qr
+    out = {}
+    ys = on_cpu(mhe_measurements)
+    for path in ("mhe", "bicycle"):
+        runs = {}
+        for backend in ("", "pallas_tiled"):
+            with band_backend_env(backend):
+                if path == "mhe":
+                    run = mhe_run(ys, "tridiag", record=True,
+                                  settings=F32_SOLVER)
+                else:
+                    run = bicycle_run(runs["pallas"]["states"] if runs
+                                      else None)
+            recorded = run.pop("recorded")
+            name = backend or "pallas"
+            tiled = run["launches"]["band_sweep_tiled"]
+            qr = sum(n for k, n in run["launches"].items()
+                     if k != "band_sweep_tiled")
+            print(f"tiled_paths {path} {name} " + json.dumps(
+                {k: v for k, v in run.items() if k != "states"}), flush=True)
+            if backend:
+                check(tiled > 0 and qr == 0 and tiled == len(recorded),
+                      f"{path} under pallas_tiled: {tiled} tiled launches, "
+                      f"{qr} band_solve launches, {len(recorded)} sweeps")
+                check(all(r[0].shape[2] >= 17 for r in recorded),
+                      f"{path}: a sweep narrower than b = 17")
+                # the bicycle's condensed float32 chains are so ill-
+                # conditioned that the plain sweep's own residual reaches
+                # the size of the right-hand side: held by backward error
+                # alone, as phase 15's ladder
+                run["kkt"] = check_recorded(
+                    recorded, "band_sweep_tiled", band_qr.band_solve_tiled,
+                    f"a float32 {path} step under pallas_tiled",
+                    forward=path == "mhe")
+            else:
+                check(tiled == 0 and qr > 0,
+                      f"{path} under the default backend: {tiled} tiled "
+                      f"launches, {qr} band_solve launches")
+            del recorded
+            runs[name] = run
+        key = "x" if path == "mhe" else "u0"
+        worst = 0.0
+        for a, b in zip(runs["pallas"]["steps"],
+                        runs["pallas_tiled"]["steps"]):
+            va, vb = np.asarray(a[key], float), np.asarray(b[key], float)
+            check(np.all(np.isfinite(va)) and np.all(np.isfinite(vb)),
+                  f"{path}: a {key} is not finite")
+            worst = max(worst, float(np.max(np.abs(va - vb)
+                                            / np.maximum(1.0, np.abs(va)))))
+            if path == "mhe":
+                worst = max(worst, abs(a["p_est"] - b["p_est"])
+                            / max(1.0, abs(a["p_est"])))
+        check(worst <= TILED_AGREE, f"{path}: the backends' {key} differ by "
+              f"{worst:.3e} (bound {TILED_AGREE:g})")
+        out[path] = dict(runs, backends_rel=worst, bound=TILED_AGREE)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -551,7 +744,11 @@ def recording(name, recorded, on=True, limit=None):
 # loose from its neighbours) and a SPIKE solve are far worse conditioned
 # than the chain: in float32 neither implementation keeps a correct digit
 # of a segment's solution, and which lands closer on one input is luck
-# (PERF.md §6), so they are held by backward error alone.
+# (PERF.md §6), so they are held by backward error alone.  A sweep whose
+# float64 solution the dtype cannot hold is counted and not held.  Where
+# the plain version in the dtype overflows (inf or nan) on a solution the
+# dtype can hold, the kernel may return non-finite values too; finite
+# values are held to a backward error of BE_FLOOR eps.
 KKT_FACTOR = 10.0
 KKT_FLOOR = {"float32": 1e-6, "float64": 1e-12}
 BE_FLOOR = 100.0
@@ -583,11 +780,14 @@ def check_recorded(recorded, kname, kernel, what, twin=None, forward=True):
     twin = twin or band_qr.band_solve_qr_multi
 
     worst = dict(be_kernel=0.0, be_twin=0.0, res_kernel=0.0, res_twin=0.0,
-                 err_kernel=0.0, err_twin=0.0, non_finite_inputs=0)
+                 err_kernel=0.0, err_twin=0.0, non_finite_inputs=0,
+                 beyond_dtype=0, twin_non_finite=0, both_non_finite=0,
+                 be_kernel_twin_non_finite=0.0, x_max_twin_non_finite=0.0)
     dname = str(recorded[0][0].dtype).replace("torch.", "") if recorded \
         else "float32"
     floor = KKT_FLOOR[dname]
     be_floor = BE_FLOOR * torch.finfo(getattr(torch, dname)).eps
+    dtype_max = torch.finfo(getattr(torch, dname)).max
     for i, args in enumerate(recorded):
         if not all(bool(torch.isfinite(a).all()) for a in args):
             # the last polish steps: a near-singular polish solve (1e10
@@ -614,6 +814,32 @@ def check_recorded(recorded, kname, kernel, what, twin=None, forward=True):
         x_same = x_64 if dname == "float64" else x_t  # the twin in dname
         r_max = float(a64[3].abs().max())
         x_max = float(x_64.abs().max())
+        if x_max > dtype_max:
+            # the solution itself is beyond the dtype's largest value: no
+            # solver in this dtype can return it (counted, not held)
+            worst["beyond_dtype"] += 1
+            continue
+        if not bool(torch.isfinite(x_same).all()):
+            # finite inputs, a solution the dtype can hold, and yet the
+            # plain version in this dtype returns inf or nan (its
+            # intermediates overflow), so its backward error bounds
+            # nothing.  The kernel may fail the same way (non-finite); where
+            # it returns finite values, they are held to a fixed backward
+            # error, BE_FLOOR eps, as a backward-stable sweep keeps
+            worst["twin_non_finite"] += 1
+            worst["x_max_twin_non_finite"] = max(
+                worst["x_max_twin_non_finite"], x_max)
+            if not bool(torch.isfinite(x_k).all()):
+                worst["both_non_finite"] += 1
+                continue
+            be = backward_error(*a64, x_k)
+            worst["be_kernel_twin_non_finite"] = max(
+                worst["be_kernel_twin_non_finite"], be)
+            check(be <= be_floor,
+                  f"{kname} on recorded KKT sweep {i} of {what}, where the "
+                  f"plain version in {dname} is not finite: backward error "
+                  f"{be:.3e} (bound {be_floor:g})")
+            continue
 
         def res(x):
             return float((band_matvec(*a64[:3], x) - a64[3]).abs().max()) \
@@ -639,8 +865,10 @@ def check_recorded(recorded, kname, kernel, what, twin=None, forward=True):
                  forward_checked=forward, sweeps=len(recorded),
                  chains=int(recorded[0][0].shape[0]) if recorded else 0,
                  recorded_from=what, dtype=dname)
-    check(worst["sweeps"] > worst["non_finite_inputs"],
-          f"no recorded band sweep of {what} had finite inputs")
+    check(worst["sweeps"] > worst["non_finite_inputs"]
+          + worst["beyond_dtype"] + worst["twin_non_finite"],
+          f"no recorded band sweep of {what} had finite inputs and a "
+          f"finite plain solution in {dname}")
     print(f"{kname}_kkt " + json.dumps(worst), flush=True)
     return worst
 
@@ -753,12 +981,9 @@ def batched_phase():
     out = dict(setup_s=setup_s, B=B, runs={})
     for backend, own in (("", "band_qr"), ("pallas_tiled",
                                            "band_sweep_tiled")):
-        os.environ["DOMPC_TPU_BAND_BACKEND"] = backend
-        try:        # the backend is read when the KKT backend is built
+        with band_backend_env(backend):
             solve = make_batch_solver(mpc, tol=1e-3, max_iter=60,
                                       throughput_mode=True)
-        finally:
-            os.environ.pop("DOMPC_TPU_BAND_BACKEND")
         name = backend or "pallas"
         calls, prev = [], None
         for kind in ("cold", "warm"):
@@ -1231,10 +1456,11 @@ def mhe_measurements(n=MHE_STEPS, seed=7):
     return [np.asarray(sim.make_step(u0)).reshape(-1) for _ in range(n)]
 
 
-def mhe_run(ys, kkt_solver, record=False):
-    """``rotating_masses_mhe`` (N=10) with ``kkt_solver`` for one step per
-    measurement, on the device of the environment; the launch counters are
-    zeroed just before the steps.  With ``record``, step 0's band sweeps
+def mhe_run(ys, kkt_solver, record=False, settings=None):
+    """``rotating_masses_mhe`` (N=10) with ``kkt_solver`` (and the solver
+    ``settings``, a dict, if given) for one step per measurement, on the
+    device of the environment; the launch counters are zeroed just before
+    the steps.  With ``record``, step 0's band sweeps (of either wrapper)
     are kept for :func:`check_recorded`."""
     from dompc_tpu_torch.solver import band_qr
     from dompc_tpu_torch.systems import (rotating_masses_model,
@@ -1242,8 +1468,10 @@ def mhe_run(ys, kkt_solver, record=False):
     t0 = time.perf_counter()
     model = rotating_masses_model()
     mhe = rotating_masses_mhe(model)
-    if mhe.settings.kkt_solver != kkt_solver:
+    if mhe.settings.kkt_solver != kkt_solver or settings:
         mhe.settings.kkt_solver = kkt_solver
+        for key, val in (settings or {}).items():
+            setattr(mhe.settings, key, val)
         mhe._create_solver()
     setup_s = time.perf_counter() - t0
     mhe.x0 = np.zeros(model.n_x)
@@ -1257,7 +1485,9 @@ def mhe_run(ys, kkt_solver, record=False):
     for k, y in enumerate(ys):
         _sync(dev)
         t1 = time.perf_counter()
-        with recording("band_solve", recorded, record and k == 0):
+        on = record and k == 0
+        with recording("band_solve", recorded, on), \
+                recording("band_solve_tiled", recorded, on):
             x = mhe.make_step(y).reshape(-1)
         _sync(dev)
         st = mhe.solver_stats
@@ -3344,8 +3574,11 @@ def main():
     for inst in ZOO_INSTANCES:
         print(f"  ptxas buckets 8/16 (LV b=8, bicycle b=15): "
               f"{json.dumps(ptxas.get(inst))}", flush=True)
+    for inst in TILED_INSTANCES:
+        print(f"  ptxas band_sweep_tiled: {json.dumps(ptxas.get(inst))}",
+              flush=True)
     if ptxas:   # empty only when build/ already held both libraries
-        for inst in FLAGSHIP_INSTANCES + MHE_INSTANCES:
+        for inst in FLAGSHIP_INSTANCES + MHE_INSTANCES + TILED_INSTANCES:
             rep = ptxas.get(inst)
             check(rep is not None and rep["spill_stores"] == 0
                   and rep["spill_loads"] == 0,
@@ -3354,6 +3587,11 @@ def main():
     # 3. kernels against their plain version
     say("kernels against their plain version:")
     rows = kernel_phase()
+    # 17, float32: the tiled kernel's buckets 97 and 32 on the MHE and the
+    # dynamic bicycle, each against the default backend from the same state
+    say("the tiled kernel on real paths float32: the tridiag MHE (b=83) and "
+        "the dynamic bicycle (b=21), each backend:")
+    tiled_paths = tiled_paths_phase()
 
     # 4. make_step, float32 here, float64 (and phase 6) in a child process
     # afterwards (one at a time: the host times are the step's own)
@@ -3479,6 +3717,14 @@ def main():
     by_path["band_qr"].update({
         f"coupled_loop_f64_{mod}": n for mod, n in cpl["launches"].items()})
     by_path["band_sweep_tiled"]["coupled_loop_f64"] = cpl["tiled_launches"]
+    tmhe, tbike = tiled_paths["mhe"], tiled_paths["bicycle"]
+    by_path["band_qr"]["dynamic_bicycle_f32"] = \
+        tbike["pallas"]["launches"]["band_qr"]
+    by_path["band_sweep_tiled"].update(
+        mhe_f32_tridiag_pallas_tiled=tmhe["pallas_tiled"]["launches"][
+            "band_sweep_tiled"],
+        dynamic_bicycle_f32_pallas_tiled=tbike["pallas_tiled"]["launches"][
+            "band_sweep_tiled"])
     by_path["band_qr"].update(dip_f64=dip["f64"]["launches"],
                               dip_f32=dip["f32"]["launches"],
                               lqr_f64=dip["lqr"]["launches"]["band_qr"])
@@ -3539,6 +3785,9 @@ def main():
                 for r in rows if r["kernel"] == kname
                 and r["case"] in dict(ZOO_SHAPES)},
             "launches_by_path": by_path[kname],
+            # every template instance with what ptxas reported for it
+            "instances": {i: rep for i, rep in ptxas.items()
+                          if i.startswith(kname + "<")},
             # every shape phase 3 holds the kernel at, old and new
             "launch_shapes": {r["case"]: r["shape"] for r in rows
                               if r["kernel"] == kname},
@@ -3555,7 +3804,25 @@ def main():
                            dip["f64"]["sweeps"]["spike"],
                            dip["f32"]["sweeps"]["spike"], minlp["lv"]["kkt"],
                            ampc["sampling"]["kkt"]]
-            if kname == "band_qr" else [batched["kkt"]]})
+            if kname == "band_qr" else [
+                batched["kkt"], tmhe["pallas_tiled"]["kkt"],
+                tbike["pallas_tiled"]["kkt"]]})
+        if kname == "band_sweep_tiled":
+            # b >= 17 (row buckets 32, 64, 97): every phase 3 shape against
+            # torch.linalg.solve and band_solve's kernel, and phase 17's
+            # steps under each backend
+            kernels[-1]["wide_bands"] = {
+                f"{r['case']}_{r['dtype']}": {k: r[k] for k in (
+                    "shape", "ms", "wrapper_ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "max_abs_err", "band_solve_kernel",
+                    "band_solve_ms", "vs_band_solve", "vs_library")}
+                for r in rows if r["kernel"] == kname and r["shape"][2] >= 17}
+            kernels[-1]["paths_f32"] = {
+                path: {be: {k: run[k] for k in ("steps", "launches")}
+                       for be, run in tiled_paths[path].items()
+                       if be in ("pallas", "pallas_tiled")}
+                | {"backends_rel": tiled_paths[path]["backends_rel"]}
+                for path in ("mhe", "bicycle")}
         if kname == "band_qr":
             # per frontier expansion of branch-and-bound: band_qr launches
             # and the chains of each launch
@@ -3587,12 +3854,15 @@ def main():
             "bound_ms", "bound_by", "max_abs_err", "residual")}
             for r in rows if r["kernel"] == "band_qr_wide"},
         "launches_by_path": {
+            "mhe_f32_tridiag": tmhe["pallas"]["launches"]["band_qr_wide"],
             "mhe_f64_tridiag": mhe["tridiag"]["launches"]["band_qr_wide"],
             "mhe_f64_auto_dense": mhe["auto"]["launches"]["band_qr_wide"],
             **{f"coupled_loop_f64_{mod}": n
                for mod, n in cpl["wide_launches"].items()}},
         "mhe_f64_tridiag_step_ms": mhe["tridiag"]["ms"],
         "ptxas": [ptxas.get(i) for i in MHE_INSTANCES],
+        "instances": {i: rep for i, rep in ptxas.items()
+                      if i.startswith("band_qr_wide<")},
         "kkt_sweeps": [mhe["tridiag"]["kkt"]]})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,9 @@
 // Register-resident banded Householder-QR sweep of one block-tridiagonal
 // chain: the device code that band_qr.cu (one thread block per chain) and
-// band_sweep_tiled.cu (one warp per chain) share, and the launch plans
-// that solver/band_qr.py mirrors (qr_plan, tiled_plan).
+// band_sweep_tiled.cu (row buckets <= 16: one warp per chain; bucket 32:
+// one thread block per chain, as band_qr.cu) share, and the launch plans
+// that solver/band_qr.py mirrors (qr_plan, tiled_plan).  Row buckets 64
+// and 97 take band_wide.cuh.
 //
 // The chain: diagonal blocks D (S, b, b), super-diagonal U (S-1, b, b),
 // sub-diagonal Lo (S-1, b, b), right-hand sides r (S, b, t).  Elimination
@@ -34,9 +36,10 @@
 //     it to its own columns with register FMAs (the dot product in eight
 //     partial sums).  A block (band_qr.cu) exchanges it through a shared
 //     slot: two slots alternating by step parity, so ONE barrier per
-//     column step and none before a slot is reused.  A warp
-//     (band_sweep_tiled.cu) gathers the pivot column with __shfl_sync and
-//     every lane builds the same reflector itself: no barrier at all.
+//     column step and none before a slot is reused (band_sweep_tiled.cu's
+//     bucket 32 runs this block path too).  A warp (band_sweep_tiled.cu's
+//     buckets <= 16) gathers the pivot column with __shfl_sync and every
+//     lane builds the same reflector itself: no barrier at all.
 //   * Stage changes move no data between threads: the thread that held
 //     logical column c+b is relabelled c, so each thread only moves its
 //     own bottom rows to its top rows; the threads that held the
@@ -110,12 +113,19 @@ __host__ __device__ constexpr int ring_stride(int rows) {
 __host__ __device__ constexpr int qr_max_threads(int rows) {
   return (3 * rows + 1 + 31) / 32 * 32 > 256 ? (3 * rows + 1 + 31) / 32 * 32 : 256;
 }
-// band_sweep_tiled: panel columns per lane (room for >= 16 right-hand
-// sides beside the 3 * rows structural columns)
+// band_sweep_tiled, buckets <= 16: panel columns per lane (room for >= 16
+// right-hand sides beside the 3 * rows structural columns)
 __host__ __device__ constexpr int tiled_cols(int rows) { return (3 * rows + 16 + 31) / 32; }
 
 constexpr size_t kSmemMax = 232448;  // dynamic shared memory of one H100 block
-constexpr int kTiledMaxG = 4;        // warps (chains) per tiled block
+constexpr int kTiledMaxG = 4;        // chains (warps) per tiled block, buckets <= 16
+// band_sweep_tiled: threads of a block (its __launch_bounds__): buckets
+// <= 16 one warp a chain, 4 chains; bucket 32 one chain a block, one panel
+// column a thread as band_qr, at most qr_max_threads(32) = 256 threads
+// (178 registers a thread)
+__host__ __device__ constexpr int tiled_block_threads(int rows) {
+  return rows <= 16 ? 32 * kTiledMaxG : qr_max_threads(rows);
+}
 
 // Right-hand-side chunking: at most `room` columns per group.
 inline void chunk(int t, int room, int* tcp, int* nch) {
@@ -171,10 +181,13 @@ inline bool qr_plan(int b, int t, int itemsize, Plan* p) {
   return fit(b, t, 0, itemsize, p);
 }
 
-// band_sweep_tiled.cu (float): one warp per (chain, chunk).
+// band_sweep_tiled.cu (float), buckets <= 32: one warp per (chain, chunk)
+// up to bucket 16; at bucket 32 band_qr's plan, W = 3b + tcp rounded up to
+// 32 threads per (chain, chunk).  Buckets 64 and 97: band_wide.cuh's plan.
 inline bool tiled_plan(int b, int t, Plan* p) {
   p->rows = row_bucket(b);
-  if (b < 1 || p->rows < 0) return false;
+  if (b < 1 || p->rows < 0 || p->rows > 32) return false;
+  if (p->rows == 32) return qr_plan(b, t, (int)sizeof(float), p);
   chunk(t, 32 * tiled_cols(p->rows) - 3 * b, &p->tcp, &p->nch);
   return fit(b, t, 32 * tiled_cols(p->rows), 4, p);
 }

@@ -18,20 +18,25 @@ two.
   panel in shared memory, blocked Householder with a compact-WY trailing
   update streamed in column tiles);
 * :func:`band_solve_tiled` launches ``csrc/band_sweep_tiled.cu`` (float
-  only), which replaces ``_band_sweep_kernel`` of the same file: one warp
-  per chain, G chains per block, each lane owning ``tiled_cols`` panel
-  columns, the pivot column exchanged with warp shuffles.
+  only), which replaces ``_band_sweep_kernel`` of the same file with a
+  design per row bucket: up to b = 16 one warp per chain, G chains per
+  block, each lane owning ``tiled_cols`` panel columns, the pivot column
+  exchanged with warp shuffles; at b = 17..32 one block of a few warps
+  per chain (one panel column a thread, as ``band_qr.cu``); at b = 33..97
+  one block per
+  chain with ``band_qr_wide``'s blocked-WY sweep.
 
-``band_qr.cu`` and the tiled kernel keep each thread's panel columns in
-registers, in a row bucket (a template instance of the kernel) chosen from
-b by :func:`row_bucket`; their column-step machinery is
-``csrc/band_core.cuh``, shared by both sources.  A column step is the same
-scaled Householder reflector as on the TPU in every kernel; the kernels
-are bound by the S*b dependent column steps of a chain, not by bytes.  The
-narrow kernels use neither tensor cores nor TMA (a 13-wide block is not
-16-byte sized); ``band_qr_wide`` runs its trailing products on the
-float64 tensor cores (never TF32: the 1e22-diagonal barrier chains need
-full precision).
+``band_qr.cu`` and the tiled kernel's buckets up to 32 keep each thread's
+panel columns in registers, in a row bucket (a template instance of the
+kernel) chosen from b by :func:`row_bucket`; their column-step machinery
+is ``csrc/band_core.cuh``.  The wide bands' blocked-WY sweep is
+``csrc/band_wide.cuh``, shared by ``band_qr_wide.cu`` and the tiled
+kernel.  A column step is the same scaled Householder reflector as on the
+TPU in every kernel; the kernels are bound by the S*b dependent column
+steps of a chain, not by bytes.  The narrow instances use neither tensor
+cores nor TMA (a 13-wide block is not 16-byte sized); the wide ones run
+their trailing products on the float64 tensor cores (never TF32: the
+1e22-diagonal barrier chains need full precision).
 :func:`qr_plan` and :func:`tiled_plan` mirror the launchers' plans in the
 CUDA sources, which check the plan they are given against their own.  The
 notes at the top of each CUDA source give the design and bound.
@@ -54,7 +59,7 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = {"band_qr": _CSRC / "band_qr.cu",
            "band_qr_wide": _CSRC / "band_qr_wide.cu",
            "band_sweep_tiled": _CSRC / "band_sweep_tiled.cu"}
-HEADERS = (_CSRC / "band_core.cuh",)
+HEADERS = (_CSRC / "band_core.cuh", _CSRC / "band_wide.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -62,8 +67,9 @@ SMEM_MAX = 232448            # dynamic shared memory one H100 block may use
 ROW_BUCKETS = (4, 8, 13, 16, 32, 64, 97)   # kernel instances (band_core.cuh)
 NARROW_MAX = 32              # band_qr.cu's widest bucket; band_qr_wide.cu above
 WIDE_THREADS = 512           # a band_qr_wide block (csrc/band_qr_wide.cu)
-TILED_MAX_G = 4              # chains (warps) per block of the tiled kernel
-TILED_MIN_BLOCKS = 3         # its __launch_bounds__: 3 blocks of 4 warps an SM
+TILED_MAX_G = 4              # chains per block of the tiled kernel, b <= 16
+TILED_MIN_BLOCKS = 3         # its __launch_bounds__ up to bucket 16: 3 blocks
+#                              of 4 warps an SM
 
 _libs = {}
 
@@ -111,9 +117,11 @@ def band_solve_qr_multi(D, U, Lo, rhs):
 
 class Plan(NamedTuple):
     """A kernel launch: ``rows`` the row bucket (kernel instance),
-    ``width`` the physical panel columns of one group (band_qr: threads a
-    block; tiled: 32 lanes times ``tiled_cols``; band_qr_wide: the threads
-    of its block), ``chunk``/``chunks`` the right-hand sides a group solves
+    ``width`` the physical panel columns of one group (band_qr and the
+    tiled kernel's bucket 32: threads a chain; the tiled kernel's buckets
+    up to 16: 32 lanes times ``tiled_cols``; band_qr_wide and the tiled
+    kernel's wide buckets: the threads of its block), ``chunk``/``chunks``
+    the right-hand sides a group solves
     and the groups a chain takes, ``buffers`` the staging buffers (2 when
     they fit: prefetch one stage, or one column tile, ahead), ``G`` the
     groups (chains) a block, ``smem`` the dynamic shared bytes a block,
@@ -242,30 +250,45 @@ def qr_plan(b, t, dtype):
 
 
 def tiled_plan(b, t, chains_per_tile=None):
-    """Launch plan of the tiled kernel (float32): one warp per chain and
-    right-hand-side chunk, G warps a block.  G is set by registers, not
-    shared memory: the kernel's ``__launch_bounds__(128, 3)`` caps a thread
-    at 168 registers so that 3 blocks of G = ``TILED_MAX_G`` = 4 warps (12
-    warps, 12 chains) fit an SM, and a batch of 128 flagship problems
-    (1152 chains over 132 SMs: 9 an SM) is resident in one wave.  Shared
-    memory (reflector slots, staging, x vectors: 9.8 KB a warp at the
-    flagship) lowers G only for panels too wide for 4 warps.
-    ``chains_per_tile`` forces G (1..TILED_MAX_G)."""
+    """Launch plan of the tiled kernel (float32), by row bucket; G
+    (``chains_per_tile`` forces it) is the chains a block.
+
+    * Buckets <= 16: one warp per chain and right-hand-side chunk, G warps
+      a block.  G is set by registers, not shared memory: the kernel's
+      ``__launch_bounds__(128, 3)`` caps a thread at 168 registers so that
+      3 blocks of G = ``TILED_MAX_G`` = 4 warps (12 warps, 12 chains) fit
+      an SM, and a batch of 128 flagship problems (1152 chains over 132
+      SMs: 9 an SM) is resident in one wave.  Shared memory (reflector
+      slots, staging, x vectors: 9.8 KB a warp at the flagship) lowers G
+      only for panels too wide for 4 warps.
+    * Bucket 32 (b = 17..32): ``band_qr``'s plan (``width`` = 3b + chunk
+      threads rounded up to 32, one panel column a thread), one chain a
+      block, G = 1 (2 to 4 chains a block measured no faster anywhere, and
+      slower where the chains could each have had an SM).
+    * Buckets 64 and 97 (b = 33..97): :func:`wide_plan` in float32, one
+      block of ``WIDE_THREADS`` a chain, G = 1.
+
+    Raises ValueError for a G outside 1..the most the bucket allows."""
     rows = row_bucket(b)
-    tcp, nch = _chunk(t, 32 * tiled_cols(rows) - 3 * b)
-    width, tcp, nch, nbuf, words = _fit(b, t, 32 * tiled_cols(rows), 4, tcp,
-                                        nch, rows)
-    if chains_per_tile is None:
-        G = min(TILED_MAX_G, SMEM_MAX // (4 * words))
+    if rows >= NARROW_MAX:      # band_solve's plan: band_qr or wide_plan
+        plan, gmax, G = qr_plan(b, t, torch.float32), 1, 1
+        words = plan.smem // 4
     else:
+        tcp, nch = _chunk(t, 32 * tiled_cols(rows) - 3 * b)
+        width, tcp, nch, nbuf, words = _fit(b, t, 32 * tiled_cols(rows), 4,
+                                            tcp, nch, rows)
+        plan = Plan(rows, width, tcp, nch, nbuf, 1, 4 * words)
+        gmax = TILED_MAX_G
+        G = min(TILED_MAX_G, SMEM_MAX // (4 * words))
+    if chains_per_tile is not None:
         G = int(chains_per_tile)
-        if not 1 <= G <= TILED_MAX_G:
-            raise ValueError(f"chains_per_tile={chains_per_tile}: 1.."
-                             f"{TILED_MAX_G} chains (warps) per block")
+        if not 1 <= G <= gmax:
+            raise ValueError(f"chains_per_tile={chains_per_tile}: 1..{gmax} "
+                             f"chains a block at b={b}, t={t}")
     if G < 1 or 4 * G * words > SMEM_MAX:
         raise ValueError(f"tiled band sweep: panel (b={b}, t={t}) of {G} "
                          "chains exceeds one block's shared memory")
-    return Plan(rows, width, tcp, nch, nbuf, G, 4 * G * words)
+    return plan._replace(G=G, smem=4 * G * words)
 
 
 # --------------------------------------------------------------------------
@@ -486,7 +509,8 @@ band_solve.wide_launches = 0
 def band_solve_tiled(D, U, Lo, rhs, chains_per_tile=None):
     """The same solve with the tiled sweep (the port of the JAX package's
     ``band_solve_qr_pallas``): float32 only, as there.  CUDA tensors
-    launch ``csrc/band_sweep_tiled.cu`` with the layout of
+    launch ``csrc/band_sweep_tiled.cu`` (one launch, every b up to 97,
+    the design chosen by the row bucket) with the layout of
     :func:`tiled_plan`; CPU tensors run the plain version.  Counts kernel
     launches in ``band_solve_tiled.launches``."""
     N, S, b, t = _check(D, U, Lo, rhs)

@@ -15,6 +15,15 @@ Stage layout: the chain is padded with identity stages to
 segment i's interior at ``[:, i, :L]`` and the separator after it at
 ``[:, i, L]`` (the last separator slot is padding).  Gathers are views and
 the solution is assembled with ``torch.cat``: no scatter.
+
+The JAX package's other public names here compute the same functions
+another way on this card: its batch-on-lanes dense QR solves
+(``qr_solve_batched``, ``qr_solve``) are batched ``torch.linalg.solve_ex``
+(LU), and its XLA lanes sweeps (``band_solve_qr_lanes``, ``band_solve``,
+``band_solve_qr_lanes_wy``, ``band_solve_wy``) and ``band_solve_spike``
+sweep with :func:`band_qr.band_solve`.  JAX's custom-vmap rules, which
+flatten an outer batch into the chain batch, have no counterpart: the
+port's sweeps take the chains batch-first.
 """
 from __future__ import annotations
 
@@ -83,3 +92,32 @@ def band_solve_spike_impl(D, U, Lo, rhs, n_parts, sweep=None):
     x_seg = ys - YL @ xs_l - YR @ xs_r[:, :, None]
     x = torch.cat([x_seg, xs_r[:, :, None]], dim=2)        # (N, P, L+1, b, t)
     return x.reshape(N, M, b, t)[:, :S]
+
+
+def qr_solve_batched(A, B):
+    """Solve A_i x_i = B_i for a batch of small dense systems: A (..., n, n),
+    B (..., n, t).  Batched ``torch.linalg.solve_ex``: a singular system
+    gives non-finite values, as the JAX package's pivot-free QR does, and
+    never raises."""
+    return torch.linalg.solve_ex(A, B)[0]
+
+
+# JAX's custom-vmap form of the same solve (solve_ex takes any leading
+# batch axes)
+qr_solve = qr_solve_batched
+
+
+# the JAX package's column-at-a-time and blocked-WY lanes sweeps, with and
+# without its custom-vmap rule: D (N, S, b, b), U and Lo (N, S-1, b, b),
+# rhs (N, S, b, t), the band-QR kernel for CUDA tensors and the plain sweep
+# for CPU tensors
+band_solve_qr_lanes = band_solve = band_solve_wy = band_solve_qr_lanes_wy = \
+    band_qr.band_solve
+
+
+def band_solve_spike(D, U, Lo, rhs, n_parts=3, use_pallas=False):
+    """:func:`band_solve_spike_impl` with :func:`band_qr.band_solve` as its
+    sweep.  ``use_pallas`` (JAX: the Pallas or the XLA lanes segment sweep)
+    chooses nothing here: both are ``band_qr.band_solve``."""
+    del use_pallas
+    return band_solve_spike_impl(D, U, Lo, rhs, n_parts)

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from . import band_qr, batchqr
+from .band_qr import band_solve_qr_multi  # noqa: F401  (JAX's bbd name)
 
 ROOT = -1       # chain id of root-assigned entities
 PARAM = -2      # chain id of parameter/dummy columns (dropped)

@@ -2,7 +2,7 @@
 card, at the shapes where the band kernels changed.
 
     python3 -m dompc_tpu_torch.tools.band_compare [--parent DIR] [--out F]
-                                                  [--mhe]
+                                                  [--mhe | --tiled]
 
 For each case of :data:`CASES` (the wide bands the main paths launch and
 the flagship as a control), both checkouts' ``solver/band_qr.py`` solve the
@@ -13,6 +13,11 @@ parent) with launches queued while the card sleeps
 version on a CPU copy.  One JSON line per case; ``--out`` also writes them
 to a file.  ``DIR`` is an unpacked checkout (``git archive``): its kernels
 build into ``DIR/build``.
+
+With ``--tiled`` the kernel is ``band_sweep_tiled`` (float32) at the cases
+of :data:`TILED_CASES` (``chip_smoke.py`` phase 3's float32 shapes, every
+row bucket), timed the same way, with this checkout's ``band_solve``
+kernel on the same inputs.
 
 With ``--mhe`` it times instead the float64 ``tridiag`` MHE step of
 ``chip_smoke.py`` phase 10 (``mhe_run`` on ``mhe_measurements``), each
@@ -52,6 +57,25 @@ CASES = [("mhe_rotating", (1, 11, 83, 2), "float32", False),
          ("mhe_spike_red", RED, "float64", False),
          ("flagship", (9, 21, 13, 12), "float32", False),
          ("flagship", (9, 21, 13, 12), "float64", False)]
+
+
+# (name, shape, 1e22 diagonal): chip_smoke.py phase 3's float32 shapes
+TILED_CASES = [("flagship", (9, 21, 13, 12), False),
+               ("batch128", (9 * 128, 21, 13, 12), False),
+               ("flagship_width_S101", (9, 101, 13, 12), False),
+               ("diag_1e22", (9, 21, 13, 12), True),
+               ("lv_root", (1, 26, 8, 1), False),
+               ("kinematic_bicycle", (1, 11, 15, 1), False),
+               ("kite", (1, 41, 13, 1), False),
+               ("dip_chain", (1, 101, 23, 1), False),
+               ("dip_spike_seg", (13, 7, 23, 47), False),
+               ("dip_spike_red", (1, 12, 23, 1), False),
+               ("lv_nodes", (8, 26, 32, 1), False),
+               ("dynamic_bicycle", (1, 11, 21, 1), False),
+               ("industrial_poly", (9, 21, 24, 24), False),
+               ("bucket64", (1, 11, 50, 2), False),
+               ("mhe_rotating", (1, 11, 83, 2), False),
+               ("mhe_rotating_1e22", (1, 11, 83, 2), True)]
 
 
 def band_case(N, S, b, t, seed, huge=False):
@@ -127,6 +151,7 @@ def main(argv=None):
     ap.add_argument("--parent", default=None)
     ap.add_argument("--out", default=None)
     ap.add_argument("--mhe", action="store_true")
+    ap.add_argument("--tiled", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("band_compare needs an NVIDIA GPU")
@@ -144,16 +169,23 @@ def main(argv=None):
         mods["parent"] = load_module(args.parent)
     for mod in mods.values():
         mod.build()
+    cases = [(n, sh, "float32", h) for n, sh, h in TILED_CASES] \
+        if args.tiled else CASES
     lines = []
-    for seed, (name, shape, dname, huge) in enumerate(CASES):
+    for seed, (name, shape, dname, huge) in enumerate(cases):
         dt = getattr(torch, dname)
+        b, t = shape[2], shape[3]
         arrays = [torch.as_tensor(a, dtype=dt, device="cuda")
                   for a in band_case(*shape, seed, huge)]
         ref = band_qr.band_solve_qr_multi(*[a.cpu() for a in arrays])
         row = dict(case=name, shape=list(shape), dtype=dname, card=card)
         launches = {}
-        for who, mod in mods.items():
-            kname = kernel_name(mod, shape[2])
+        variants = dict(mods)
+        if args.tiled:
+            variants["this_band_solve"] = band_qr
+        for who, mod in variants.items():
+            kname = kernel_name(mod, b) if not args.tiled \
+                or who == "this_band_solve" else "band_sweep_tiled"
             launch, x = mod.launcher(kname, *arrays)
             launch()
             torch.cuda.synchronize()
@@ -162,10 +194,13 @@ def main(argv=None):
                                           / ref.abs().max())
             first = device_ms(launch, 1)
             launches[who] = (launch, max(2, min(30, int(300 / first))))
-            row[f"{who}_plan"] = mod.qr_plan(shape[2], shape[3], dt)._asdict()
+            row[f"{who}_plan"] = (
+                mod.tiled_plan(b, t) if kname == "band_sweep_tiled"
+                else mod.qr_plan(b, t, dt))._asdict()
         order = ["parent", "this", "this", "parent"] if args.parent \
             else ["this", "this"]
-        times = {who: [] for who in mods}
+        order += [who for who in variants if who.startswith("this_")] * 2
+        times = {who: [] for who in variants}
         for who in order:
             launch, reps = launches[who]
             times[who].append(device_ms(launch, reps))
@@ -174,6 +209,9 @@ def main(argv=None):
         if args.parent:
             row["speedup"] = float(np.mean(times["parent"])
                                    / np.mean(times["this"]))
+        if args.tiled:
+            row["vs_band_solve"] = float(np.mean(times["this"]) / np.mean(
+                times["this_band_solve"]))
         print(json.dumps(row), flush=True)
         lines.append(row)
         del launches

@@ -116,8 +116,10 @@ def _build_probed(band_qr):
     """Compile the probed sources; returns {name: ctypes library}."""
     out_dir = band_qr.BUILD_DIR / "probe"
     out_dir.mkdir(parents=True, exist_ok=True)
-    core = probe_source((band_qr._CSRC / "band_core.cuh").read_text())
-    (out_dir / "band_core.cuh").write_text(core)
+    for hdr in band_qr.HEADERS:     # the probes go into band_core.cuh
+        text = hdr.read_text()
+        (out_dir / hdr.name).write_text(
+            probe_source(text) if hdr.name == "band_core.cuh" else text)
     procs = {}
     for name, src in band_qr.SOURCES.items():
         cu = out_dir / src.name

@@ -2,7 +2,9 @@
 
     python3 scripts/wide_probe.py [--out F]
 
-Builds a copy of ``csrc/band_qr_wide.cu`` into ``build/wide_probe/`` with
+Builds a copy of ``csrc/band_qr_wide.cu``, with ``csrc/band_wide.cuh`` (the
+device code it shares with ``band_sweep_tiled.cu``) inlined, into
+``build/wide_probe/`` with
 ``clock64()`` stamps at the anchors of :data:`ANCHORS` (thread 0 of block
 0 records each, so the cycles are those of one chain), launches it at
 :data:`SHAPES`, holds each solution to the plain version on a CPU copy,
@@ -11,8 +13,8 @@ anchors, summed over stages: the panel's column steps (warp 0's chain of
 a step, and its wait for the other warps), G, T's levels,
 the trailing products, and the back substitution's staging, products and
 triangular solves.  Needs an NVIDIA GPU and ``nvcc``; the stamps cost a
-few cycles each and nothing else.  The anchors are literal lines of the
-kernel's source: after an edit there, update :data:`ANCHORS` (the probe
+few cycles each and nothing else.  The anchors are literal lines of
+``band_wide.cuh``: after an edit there, update :data:`ANCHORS` (the probe
 raises on an anchor it does not find once).
 """
 from __future__ import annotations
@@ -96,7 +98,10 @@ def main(argv=None):
     out = band_qr.BUILD_DIR / "wide_probe"
     out.mkdir(parents=True, exist_ok=True)
     src = out / "band_qr_wide_probe.cu"
-    src.write_text(probe_source(band_qr.SOURCES["band_qr_wide"].read_text()))
+    hdr = (band_qr._CSRC / "band_wide.cuh").read_text()
+    kernel = band_qr.SOURCES["band_qr_wide"].read_text().replace(
+        '#include "band_wide.cuh"\n', hdr.replace("#pragma once\n", ""))
+    src.write_text(probe_source(kernel))
     so = out / "libband_qr_wide_probe.so"
     r = subprocess.run([band_qr._nvcc(), *band_qr.NVCC_FLAGS, "-o", str(so),
                         str(src)], capture_output=True, text=True)

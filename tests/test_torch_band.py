@@ -212,15 +212,18 @@ def test_band_solve_tiled_on_cpu_and_its_checks():
 
 
 def test_tiled_plan_layouts():
-    """The tiled kernel's launch layout follows registers, not shared
-    memory: at the flagship a lane owns 2 of the 51 panel columns (width
-    64), one warp solves a chain, and G = 4 warps a block; its
-    __launch_bounds__(128, 3) lets 3 such blocks share an SM, so every one
-    of a batch of 128 flagship problems (1152 chains, 9 an SM on 132 SMs)
-    is resident in one wave, and 3 blocks' shared memory (2 reflector
-    slots of 28 words, 2 staging buffers of 13 x 64 and an x ring of 3 x
-    12 right-hand sides at stride 20: 2440 words a warp) fits an SM's
-    228 KB.  S no longer matters: the factors live in device memory."""
+    """The tiled kernel's launch layout, by row bucket.  Up to bucket 16 it
+    follows registers, not shared memory: at the flagship a lane owns 2 of
+    the 51 panel columns (width 64), one warp solves a chain, and G = 4
+    warps a block; its __launch_bounds__(128, 3) lets 3 such blocks share
+    an SM, so every one of a batch of 128 flagship problems (1152 chains, 9
+    an SM on 132 SMs) is resident in one wave, and 3 blocks' shared memory
+    (2 reflector slots of 28 words, 2 staging buffers of 13 x 64 and an x
+    ring of 3 x 12 right-hand sides at stride 20: 2440 words a warp) fits
+    an SM's 228 KB.  S no longer matters: the factors live in device
+    memory.  At bucket 32 a chain takes band_qr's block of 3b + t threads
+    rounded up to 32 (at most 256), one chain a block; at buckets 64 and 97
+    band_qr_wide's plan, one block of 512 a chain."""
     plan = band_qr.tiled_plan(13, 12)
     assert plan == band_qr.Plan(rows=13, width=64, chunk=12, chunks=1,
                                 buffers=2, G=4, smem=4 * 4 * 2440)
@@ -230,6 +233,24 @@ def test_tiled_plan_layouts():
     for bad in (0, band_qr.TILED_MAX_G + 1):
         with pytest.raises(ValueError):
             band_qr.tiled_plan(13, 12, chains_per_tile=bad)
+    # bucket 32: the DIP's chain (b = 23, t = 1), 3 warps a chain
+    dip = band_qr.tiled_plan(23, 1)
+    assert dip == band_qr.qr_plan(23, 1, torch.float32)
+    assert (dip.rows, dip.width, dip.G) == (32, 96, 1)
+    assert band_qr.tiled_plan(23, 1, chains_per_tile=1) == dip
+    for b, t in ((17, 1), (23, 1), (32, 1), (17, 205)):
+        plan = band_qr.tiled_plan(b, t, chains_per_tile=1)
+        assert plan.G == 1 and plan.width <= 256
+        assert plan.smem <= band_qr.SMEM_MAX
+        with pytest.raises(ValueError):
+            band_qr.tiled_plan(b, t, chains_per_tile=2)
+    # buckets 64 and 97: the MHE's band (b = 83, t = 2)
+    mhe = band_qr.tiled_plan(83, 2)
+    assert mhe == band_qr.wide_plan(83, 2, torch.float32)
+    assert band_qr.tiled_plan(83, 2, chains_per_tile=1) == mhe
+    for b in (33, 83, 97):
+        with pytest.raises(ValueError):
+            band_qr.tiled_plan(b, 2, chains_per_tile=2)
 
 
 @pytest.mark.parametrize("b,t,rows,width,chunk,chunks", [
@@ -238,14 +259,30 @@ def test_tiled_plan_layouts():
     (13, 26, 13, 64, 13, 2),      # 3b + t = 65: two chunks of 13
     (5, 49, 8, 64, 49, 1), (5, 50, 8, 64, 25, 2),   # 3b + t = 64 | 65
     (14, 12, 16, 64, 12, 1),      # b past the flagship bucket
-    (4, 3, 4, 32, 3, 1), (5, 3, 8, 64, 3, 1)])
+    (4, 3, 4, 32, 3, 1), (5, 3, 8, 64, 3, 1),
+    (16, 16, 16, 64, 16, 1), (16, 17, 16, 64, 9, 2),   # 3b + t = 64 | 65
+    # bucket 32 (b = 17..32): 3b + t threads rounded up to 32 a chain, at
+    # most 256 (3b + t = 64 | 65, 256 | 257)
+    (17, 1, 32, 64, 1, 1), (17, 13, 32, 64, 13, 1), (17, 14, 32, 96, 14, 1),
+    (17, 205, 32, 256, 205, 1), (17, 206, 32, 160, 103, 2),
+    (32, 1, 32, 128, 1, 1), (32, 160, 32, 256, 160, 1),
+    (32, 161, 32, 192, 81, 2),
+    # buckets 64 and 97 (b = 33..97): 512 threads, one chunk at any t
+    (33, 2, 64, 512, 2, 1), (33, 1000, 64, 512, 1000, 1),
+    (64, 2, 64, 512, 2, 1), (65, 2, 97, 512, 2, 1), (97, 1, 97, 512, 1, 1),
+    (97, 168, 97, 512, 168, 1)])
 def test_tiled_plan_buckets_and_chunks(b, t, rows, width, chunk, chunks):
     """Row bucket and right-hand-side chunks on both sides of their edges
-    (a lane of bucket r owns ceil((3r + 16) / 32) columns)."""
+    (a lane of bucket r <= 16 owns ceil((3r + 16) / 32) columns; a thread
+    of bucket 32 one; the wide buckets stream every column)."""
     plan = band_qr.tiled_plan(b, t)
     assert (plan.rows, plan.width, plan.chunk, plan.chunks) == \
         (rows, width, chunk, chunks)
-    assert 3 * b + plan.chunk <= plan.width
+    if rows > band_qr.NARROW_MAX:
+        assert plan.width == band_qr.WIDE_THREADS and plan.G == 1
+    else:
+        assert 3 * b + plan.chunk <= plan.width
+    assert plan.smem <= band_qr.SMEM_MAX
 
 
 @pytest.mark.parametrize("dtype,smem", [(torch.float32, 4 * 2440),
@@ -450,21 +487,31 @@ def test_wide_plan_mirror():
 
 def test_ptxas_report_parses_instances():
     qr = "_Z14band_qr_kernelIfLi13EEvPKT_S2_S2_S2_PS0_S3_iiiiii"
-    tl = "_Z23band_sweep_tiled_kernelILi97EEvPKfS1_S1_S1_PfS2_xiiiiii"
-    log = "\n".join([
+    wd = "_Z19band_qr_wide_kernelIdLi97EEvPKT_S2_S2_S2_PS0_S3_iiiii"
+    tl = "_Z23band_sweep_tiled_kernelILi{}EEvPKfS1_S1_S1_PfS2_xiiiiiiii"
+    log = [
         f"ptxas info    : Compiling entry function '{qr}' for 'sm_90a'",
         f"ptxas info    : Function properties for {qr}",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 114 registers, used 1 barriers",
-        f"ptxas info    : Compiling entry function '{tl}' for 'sm_90a'",
-        "    9280 bytes stack frame, 2060 bytes spill stores, 3272 bytes "
-        "spill loads",
-        "ptxas info    : Used 168 registers"])
-    rep = band_qr.ptxas_report(log)
-    assert [r["instance"] for r in rep] == ["band_qr<float,13>",
-                                            "band_sweep_tiled<97>"]
+        f"ptxas info    : Compiling entry function '{wd}' for 'sm_90a'",
+        "ptxas info    : Used 128 registers, 8 bytes smem"]
+    for rows in band_qr.ROW_BUCKETS:    # every tiled instance, one design
+        log += [       # per bucket (one warp, a group of warps, a block)
+            f"ptxas info    : Compiling entry function "
+            f"'{tl.format(rows)}' for 'sm_90a'",
+            f"    {rows} bytes stack frame, {rows} bytes spill stores, "
+            f"{2 * rows} bytes spill loads",
+            f"ptxas info    : Used {100 + rows} registers"]
+    rep = band_qr.ptxas_report("\n".join(log))
+    assert [r["instance"] for r in rep] == [
+        "band_qr<float,13>", "band_qr_wide<double,97>"] + [
+        f"band_sweep_tiled<{rows}>" for rows in band_qr.ROW_BUCKETS]
     assert (rep[0]["registers"], rep[0]["spill_stores"]) == (114, 0)
-    assert (rep[1]["registers"], rep[1]["spill_loads"]) == (168, 3272)
+    assert (rep[1]["registers"], rep[1]["smem"]) == (128, 8)
+    for r, rows in zip(rep[2:], band_qr.ROW_BUCKETS):
+        assert (r["registers"], r["spill_stores"], r["spill_loads"]) == \
+            (100 + rows, rows, 2 * rows)
 
 
 def test_band_probe_patches_the_committed_core():

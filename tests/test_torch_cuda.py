@@ -215,6 +215,70 @@ def test_tiled_kernel_matches_twin_on_card(shape, tile):
     assert float((x - ref).abs().max() / ref.abs().max()) < 1e-4
 
 
+# The tiled kernel's redesigned buckets: 32 (b = 17..32, a block of a few
+# warps a chain) and 64, 97 (b = 33..97, a block of 512 a chain): every b
+# from b = 17 to 97 that a path or an edge names, S = 1 and 2, t across
+# bucket 32's chunk edge (3b + t = 256 | 257 at b = 17), odd N (one chain
+# a block here; N not a multiple of G is test_tiled_kernel_matches_twin_
+# on_card's (5, 21, 13, 12) at bucket 13)
+TILED_WIDE_SHAPES = [(3, 5, 17, 2), (1, 3, 17, 205), (1, 3, 17, 206),
+                     (3, 4, 23, 1), (2, 1, 23, 3), (13, 7, 23, 47),
+                     (3, 2, 32, 4), (2, 3, 33, 2), (1, 11, 50, 2),
+                     (1, 11, 83, 2), (2, 1, 83, 2), (2, 2, 97, 1),
+                     (1, 3, 97, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TILED_WIDE_SHAPES)
+@pytest.mark.parametrize("tile", [None, "most"])
+def test_tiled_kernel_wide_bands_on_card(shape, tile):
+    """band_solve_tiled at b = 17..97 against the plain version on a CPU
+    copy and against band_solve on the same inputs (1e-4, as for b <= 16),
+    one launch counted; ``most``: the most chains a block the bucket
+    allows (1 at b >= 17)."""
+    _needs_card()
+    D, U, Lo, rhs = _case(*shape, seed=sum(shape) + 5, dtype=torch.float32)
+    G = None if tile is None else 1
+    before = band_qr.band_solve_tiled.launches
+    x = band_qr.band_solve_tiled(D, U, Lo, rhs, chains_per_tile=G)
+    torch.cuda.synchronize()
+    assert band_qr.band_solve_tiled.launches == before + 1
+    res, err = _errors(D, U, Lo, rhs, x)
+    assert res < 1e-4 and err < 1e-4
+    y = band_qr.band_solve(D, U, Lo, rhs)
+    assert float((x - y).abs().max() / y.abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 12, 23, 1), (1, 11, 83, 2)])
+def test_tiled_kernel_wide_bands_huge_diagonal_on_card(shape):
+    """A 1e22 diagonal at b = 23 (bucket 32) and 83 (bucket 97), float32:
+    finite, residual and error below 1e-3 (tests/test_pallas_band.py:
+    126-147)."""
+    _needs_card()
+    D, U, Lo, rhs = _case(*shape, seed=shape[2], dtype=torch.float32,
+                          huge=True)
+    x = band_qr.band_solve_tiled(D, U, Lo, rhs)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(x).all())
+    res, err = _errors(D, U, Lo, rhs, x)
+    assert res < 1e-3 and err < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,G", [(23, 3), (17, 5), (17, 2), (32, 2),
+                                 (50, 2), (83, 2)])
+def test_tiled_kernel_refuses_too_many_chains_a_block_on_card(b, G):
+    """chains_per_tile beyond what the bucket allows raises before any
+    launch (buckets 32, 64 and 97: one chain a block)."""
+    _needs_card()
+    args = _case(2, 3, b, 2, seed=b, dtype=torch.float32)
+    before = band_qr.band_solve_tiled.launches
+    with pytest.raises(ValueError):
+        band_qr.band_solve_tiled(*args, chains_per_tile=G)
+    assert band_qr.band_solve_tiled.launches == before
+
+
 @pytest.mark.cuda
 def test_scatter_sum_cols_is_deterministic_on_card():
     """The KKT assembly's scatter gives the same bits every call on the
