@@ -859,7 +859,8 @@ class MPC(Optimizer, IteratedVariables):
         structured backends: instance derivatives at the current points of
         a batch, ``Hi`` (B, I, d, d), ``Jg_i`` (B, I, E, d), ``Jh_i`` (B,
         I, nlr, d), from three independent vmapped transforms over the B*I
-        instances (the JAX package's default, unfused form)."""
+        instances (the JAX package's default, unfused form), in spans
+        ``oracle.gather``, ``oracle.hessian`` and ``oracle.jacobian``."""
         sp = self._struct_parts
         gather, nlr, I, d = sp["gather"], sp["nlr"], sp["I"], sp["d"]
         d_g, d_h, d2_lag = sp["d_g"], sp["d_h"], sp["d2_lag"]
@@ -867,11 +868,15 @@ class MPC(Optimizer, IteratedVariables):
 
         def prepare(w, pvec, lam_g, lam_h, sig_w, inv_sig_s):
             B = w.shape[0]
-            V, tvp, tvpN, p, om, tm = gather(w, pvec)
-            Hi = vmap(d2_lag)(V, tvp, tvpN, p, om, tm,
-                              *sp["inst_multipliers"](lam_g, lam_h))
-            Jg_i = vmap(d_g)(V, tvp, p)
-            Jh_i = vmap(d_h)(V, tvp, p) if nlr else V.new_zeros((B * I, 0, d))
+            with profiler.span("oracle.gather"):
+                V, tvp, tvpN, p, om, tm = gather(w, pvec)
+            with profiler.span("oracle.hessian"):
+                Hi = vmap(d2_lag)(V, tvp, tvpN, p, om, tm,
+                                  *sp["inst_multipliers"](lam_g, lam_h))
+            with profiler.span("oracle.jacobian"):
+                Jg_i = vmap(d_g)(V, tvp, p)
+                Jh_i = vmap(d_h)(V, tvp, p) if nlr \
+                    else V.new_zeros((B * I, 0, d))
             return tuple(x.reshape((B, I) + x.shape[1:])
                          for x in (Hi, Jg_i, Jh_i)) + (sig_w, inv_sig_s)
         return prepare
@@ -894,10 +899,11 @@ class MPC(Optimizer, IteratedVariables):
         def prepare(w, pvec, lam_g, lam_h, sig_w, inv_sig_s):
             Hi, Jg_i, Jh_i, _, _ = prepare_derivs(w, pvec, lam_g, lam_h,
                                                   sig_w, inv_sig_s)
-            return assembler.assemble(
-                Hi, Jg_i, Jh_i, sig_w,
-                -delta_cons * w.new_ones((w.shape[0], m)),
-                -inv_sig_s - delta_cons)
+            with profiler.span("kkt.assemble"):
+                return assembler.assemble(
+                    Hi, Jg_i, Jh_i, sig_w,
+                    -delta_cons * w.new_ones((w.shape[0], m)),
+                    -inv_sig_s - delta_cons)
 
         return prepare, bbd_kkt_solve(
             assembler, self._dtype, band_backend(self._dtype, self._device),
@@ -1013,76 +1019,80 @@ class MPC(Optimizer, IteratedVariables):
             b_w, b_g = -r_dw, -r_g
             b_h = -r_h_mod if q else r_dw.new_zeros((B, 0))
 
-            H_ii = Hi[:, :, ic[:, None], ic[None, :]]
-            H_ib = Hi[:, :, ic[:, None], bc[None, :]]
-            H_bb = Hi[:, :, bc[:, None], bc[None, :]]
-            Jg_int = Jg_i[:, :, ir]             # (B, I, n_ir, d)
-            Jg_bnd = Jg_i[:, :, br]             # (B, I, n_br, d)
-            J_ii = Jg_int[..., ic]
-            J_ib = Jg_int[..., bc]
-            Jb_ii = Jg_bnd[..., ic]             # bnd rows x int cols
-            Jb_ib = Jg_bnd[..., bc]
-            sig_int = sig_w[:, A_int_t] + delta[:, None, None]  # (B,I,n_iv)
-            eye_ir = torch.eye(n_ir, dtype=Hi.dtype, device=Hi.device)
+            with profiler.span("kkt.condense"):
+                H_ii = Hi[:, :, ic[:, None], ic[None, :]]
+                H_ib = Hi[:, :, ic[:, None], bc[None, :]]
+                H_bb = Hi[:, :, bc[:, None], bc[None, :]]
+                Jg_int = Jg_i[:, :, ir]             # (B, I, n_ir, d)
+                Jg_bnd = Jg_i[:, :, br]             # (B, I, n_br, d)
+                J_ii = Jg_int[..., ic]
+                J_ib = Jg_int[..., bc]
+                Jb_ii = Jg_bnd[..., ic]             # bnd rows x int cols
+                Jb_ib = Jg_bnd[..., bc]
+                # (B, I, n_iv)
+                sig_int = sig_w[:, A_int_t] + delta[:, None, None]
+                eye_ir = torch.eye(n_ir, dtype=Hi.dtype, device=Hi.device)
 
-            def T_(x):
-                return x.transpose(-1, -2)
+                def T_(x):
+                    return x.transpose(-1, -2)
 
-            M_ii = torch.cat([
-                torch.cat([H_ii + torch.diag_embed(sig_int), T_(J_ii)],
-                          dim=-1),
-                torch.cat([J_ii, (-delta_cons * eye_ir).expand(
-                    B, I, n_ir, n_ir)], dim=-1)], dim=-2)
+                M_ii = torch.cat([
+                    torch.cat([H_ii + torch.diag_embed(sig_int), T_(J_ii)],
+                              dim=-1),
+                    torch.cat([J_ii, (-delta_cons * eye_ir).expand(
+                        B, I, n_ir, n_ir)], dim=-1)], dim=-2)
 
-            top = [H_ib, T_(Jb_ii)]
-            if nlr:
-                Jh_int = Jh_i[..., ic]
-                Jh_bnd = Jh_i[..., bc]
-                top.append(T_(Jh_int))
-            M_ib = torch.cat([
-                torch.cat(top, dim=-1),
-                torch.cat([J_ib, Hi.new_zeros((B, I, n_ir, n_be - n_bv))],
-                          dim=-1)], dim=-2)
+                top = [H_ib, T_(Jb_ii)]
+                if nlr:
+                    Jh_int = Jh_i[..., ic]
+                    Jh_bnd = Jh_i[..., bc]
+                    top.append(T_(Jh_int))
+                M_ib = torch.cat([
+                    torch.cat(top, dim=-1),
+                    torch.cat([J_ib, Hi.new_zeros((B, I, n_ir, n_be - n_bv))],
+                              dim=-1)], dim=-2)
 
-            # boundary block (rows diag: -delta_cons for eq rows,
-            # -(inv_sig_s + delta_cons) for h rows)
-            rows = [torch.cat([H_bb, T_(Jb_ib)]
-                              + ([T_(Jh_bnd)] if nlr else []), dim=-1),
-                    torch.cat([Jb_ib,
-                               Hi.new_zeros((B, I, n_br, n_br + nlr))],
-                              dim=-1)]
-            if nlr:
-                rows.append(torch.cat(
-                    [Jh_bnd, Hi.new_zeros((B, I, nlr, n_br + nlr))],
-                    dim=-1))
-            M_bb = torch.cat(rows, dim=-2)
-            diag_rows = torch.cat([
-                Hi.new_zeros((B, I, n_bv)),
-                Hi.new_full((B, I, n_br), -delta_cons),
-                (-(inv_sig_s[:, R_h_flat].reshape(B, I, nlr) + delta_cons)
-                 if nlr else Hi.new_zeros((B, I, 0)))], dim=-1)
-            M_bb = M_bb + torch.diag_embed(diag_rows)
+                # boundary block (rows diag: -delta_cons for eq rows,
+                # -(inv_sig_s + delta_cons) for h rows)
+                rows = [torch.cat([H_bb, T_(Jb_ib)]
+                                  + ([T_(Jh_bnd)] if nlr else []), dim=-1),
+                        torch.cat([Jb_ib,
+                                   Hi.new_zeros((B, I, n_br, n_br + nlr))],
+                                  dim=-1)]
+                if nlr:
+                    rows.append(torch.cat(
+                        [Jh_bnd, Hi.new_zeros((B, I, nlr, n_br + nlr))],
+                        dim=-1))
+                M_bb = torch.cat(rows, dim=-2)
+                diag_rows = torch.cat([
+                    Hi.new_zeros((B, I, n_bv)),
+                    Hi.new_full((B, I, n_br), -delta_cons),
+                    (-(inv_sig_s[:, R_h_flat].reshape(B, I, nlr) + delta_cons)
+                     if nlr else Hi.new_zeros((B, I, 0)))], dim=-1)
+                M_bb = M_bb + torch.diag_embed(diag_rows)
 
-            b_int = torch.cat([b_w[:, A_int_t], b_g[:, R_g_int_t]], dim=-1)
-            rhs_int = torch.cat([M_ib, b_int[..., None]], dim=-1)
-            Y = torch.linalg.solve_ex(M_ii, rhs_int)[0]   # no raise/sync
-            C_i = M_bb - torch.einsum("...ij,...ik->...jk", M_ib,
-                                      Y[..., :n_be])
-            corr = torch.einsum("...ij,...i->...j", M_ib, Y[..., n_be])
+                b_int = torch.cat([b_w[:, A_int_t], b_g[:, R_g_int_t]], dim=-1)
+                rhs_int = torch.cat([M_ib, b_int[..., None]], dim=-1)
+                Y = torch.linalg.solve_ex(M_ii, rhs_int)[0]   # no raise/sync
+                C_i = M_bb - torch.einsum("...ij,...ik->...jk", M_ib,
+                                          Y[..., :n_be])
+                corr = torch.einsum("...ij,...i->...j", M_ib, Y[..., n_be])
 
-            D, U, Lo, Bord, Root = assembler.assemble(
-                C_i, sig_w + delta[:, None],
-                Hi.new_full((B, n_x), -delta_cons))
-            rhs_c, rhs_r = assembler.pack_rhs(b_w, b_g, b_h)
-            rhs_c, rhs_r = assembler.add_corrections(rhs_c, rhs_r, corr)
+            with profiler.span("kkt.assemble"):
+                D, U, Lo, Bord, Root = assembler.assemble(
+                    C_i, sig_w + delta[:, None],
+                    Hi.new_full((B, n_x), -delta_cons))
+                rhs_c, rhs_r = assembler.pack_rhs(b_w, b_g, b_h)
+                rhs_c, rhs_r = assembler.add_corrections(rhs_c, rhs_r, corr)
             n_ref = 0 if r_dw.dtype == torch.float32 else n_refine
             x_c, x_r = bbd_solve(D, U, Lo, Bord, Root, rhs_c, rhs_r,
                                  n_refine=n_ref, backend=backend)
-            dw, dg, dh, x_ent = assembler.unpack_sol(x_c, x_r)
-            x_int = Y[..., n_be] - torch.einsum("...ib,...b->...i",
-                                                Y[..., :n_be], x_ent)
-            dw[:, A_int_flat] = x_int[..., :n_iv].reshape(B, -1)
-            dg[:, R_g_int_flat] = x_int[..., n_iv:].reshape(B, -1)
+            with profiler.span("kkt.expand"):
+                dw, dg, dh, x_ent = assembler.unpack_sol(x_c, x_r)
+                x_int = Y[..., n_be] - torch.einsum("...ib,...b->...i",
+                                                    Y[..., :n_be], x_ent)
+                dw[:, A_int_flat] = x_int[..., :n_iv].reshape(B, -1)
+                dg[:, R_g_int_flat] = x_int[..., n_iv:].reshape(B, -1)
             return dw, dg, dh
 
         return prepare, solve

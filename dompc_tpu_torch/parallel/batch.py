@@ -22,6 +22,7 @@ import torch.distributed as dist
 
 from .._config import resolve_device
 from ..solver.ipm import IPMSettings, IPMSolution, make_ipm_solver
+from ..tools import _profiler as profiler
 
 
 def initial_guess_from_x0(mpc, x0s):
@@ -81,7 +82,9 @@ def make_batch_solver(mpc, tol=1e-6, max_iter=60, use_structured=True,
     program, the full globalized loop.  ``warm`` is accepted for the JAX
     signature and unused there too.
     ``solve_batch.ipm`` is the underlying solver (its ``newton_steps``
-    counts the batch's Newton steps).
+    counts the batch's Newton steps).  A solving call (with ``chunk``, each
+    sub-batch) runs in span ``batch.solve``; copying a host array or scalar
+    onto the device is a host sync there (``sync.x0``, ``sync.w0``, ...).
     """
     st = mpc.settings
     if throughput_mode or rti_iters:
@@ -112,6 +115,11 @@ def make_batch_solver(mpc, tol=1e-6, max_iter=60, use_structured=True,
             return x.to(device=mpc._device, dtype=mpc._dtype)
         return mpc._tensor(x)
 
+    def T_sync(site, x):
+        """``T(x)``; a copy from the host is one host sync (span
+        ``sync.<site>``)."""
+        return profiler.to_device(site, x, mpc._dtype, mpc._device)
+
     base_pvec = T(mpc._assemble_opt_p(np.zeros(mpc.model.n_x)))
     x0_sl = mpc._p_sl["x0"]
     u_sl = mpc.layout.sl(("u", 0, 0))
@@ -135,22 +143,26 @@ def make_batch_solver(mpc, tol=1e-6, max_iter=60, use_structured=True,
             sols, u0s = zip(*outs)
             sol = IPMSolution(*(torch.cat(xs) for xs in zip(*sols)))
             return sol, torch.cat(u0s)
-        pvec = base_pvec.expand(B, -1).clone()
-        pvec[:, x0_sl] = T(x0s)
-        if lam0s is None:
-            # cold: the solver's own initialization (the JAX package runs
-            # it through the warm program with the cold multipliers, the
-            # same arithmetic, to save a compile)
-            sol = solve(T(w0s), pvec)
-        else:
-            if mu0 is None:
-                mu0 = st.warm_start_mu
-            if zl0s is None:
-                # zeros fall through init_state's z_init default per entry
-                zl0s = torch.zeros((B, n_zl))
-                zu0s = torch.zeros((B, n_zl))
-            sol = solve(T(w0s), pvec, T(lam0s), T(mu0), T(zl0s), T(zu0s))
-        return sol, sol.w[:, u_sl] * u_scaling
+        with profiler.span("batch.solve"):
+            pvec = base_pvec.expand(B, -1).clone()
+            pvec[:, x0_sl] = T_sync("x0", x0s)
+            if lam0s is None:
+                # cold: the solver's own initialization (the JAX package
+                # runs it through the warm program with the cold
+                # multipliers, the same arithmetic, to save a compile)
+                sol = solve(T_sync("w0", w0s), pvec)
+            else:
+                if mu0 is None:
+                    mu0 = st.warm_start_mu
+                if zl0s is None:
+                    # zeros fall through init_state's z_init default per
+                    # entry
+                    zl0s = torch.zeros((B, n_zl))
+                    zu0s = torch.zeros((B, n_zl))
+                sol = solve(T_sync("w0", w0s), pvec, T_sync("lam0", lam0s),
+                            T_sync("mu0", mu0), T_sync("zl0", zl0s),
+                            T_sync("zu0", zu0s))
+            return sol, sol.w[:, u_sl] * u_scaling
 
     solve_batch.ipm = solve
     return solve_batch

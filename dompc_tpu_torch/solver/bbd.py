@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from . import band_qr, batchqr
+from ..tools import _profiler as profiler
 from .band_qr import band_solve_qr_multi  # noqa: F401  (JAX's bbd name)
 
 ROOT = -1       # chain id of root-assigned entities
@@ -737,7 +738,7 @@ def bbd_solve(D, U, Lo, Bord, Root, rhs_c, rhs_r, n_refine=0,
         x_c = Y[..., R] - torch.einsum("bckit,bt->bcki", Y[..., :R], x_r)
         return x_c, x_r
 
-    with torch.profiler.record_function("kkt.bbd_solve"):
+    with profiler.span("kkt.bbd_solve"):
         x_c, x_r = one_solve(rhs_c, rhs_r)
         Db, Ub, Lb = (a.reshape((B, C) + a.shape[1:]) for a in (D, U, Lo))
         for _ in range(n_refine):

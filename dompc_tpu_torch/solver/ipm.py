@@ -23,6 +23,11 @@ loop that runs while any element is unfinished, and elements that are
 finished are frozen by ``torch.where``; ``_cond_any`` (skip a branch when
 no element needs it) is a host-side ``if`` on the predicate's ``any()``.
 ``MPC.make_step`` solves with B=1.
+
+The solve runs under the spans of ``tools/_profiler.py:SPANS``: ``ipm.*``
+around its phases, ``oracle.point`` around every evaluation of the
+problem functions at a point, and ``sync.<site>`` around every blocking
+read of the device (``profiler.any_true``, ``profiler.to_device``).
 """
 from __future__ import annotations
 
@@ -31,9 +36,9 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function as _range
 
 from .._config import resolve_device, resolve_dtype
+from ..tools import _profiler as profiler
 
 
 @dataclass(frozen=True)
@@ -175,10 +180,11 @@ def _safe_div(a, b):
     return a / torch.where(b == 0, torch.ones_like(b), b)
 
 
-def _cond_any(pred, true_fn, false_val):
+def _cond_any(site, pred, true_fn, false_val):
     """Run ``true_fn`` only when some element's predicate holds (the JAX
-    package's zero-trip ``while_loop``, here a host-side ``if``)."""
-    return true_fn() if bool(torch.as_tensor(pred).any()) else false_val
+    package's zero-trip ``while_loop``, here a host-side ``if`` on a read
+    of the device in span ``sync.<site>``)."""
+    return true_fn() if profiler.any_true(site, pred) else false_val
 
 
 def _c(x):
@@ -213,9 +219,11 @@ def _dot(a, b):
 def _debug(fmt, **vals):
     """``IPMSettings.debug``: print ``fmt`` on the host once per batch
     element, with element ``i`` of each (B,) value (scalars as given)."""
-    rows = {k: (v.detach().cpu().reshape(-1).tolist()
-                if torch.is_tensor(v) and v.ndim else
-                (v.item() if torch.is_tensor(v) else v))
+    def read(v):
+        with profiler.host_sync("debug"):
+            return v.detach().cpu().reshape(-1).tolist() if v.ndim \
+                else v.item()
+    rows = {k: (read(v) if torch.is_tensor(v) else v)
             for k, v in vals.items()}
     B = max((len(v) for v in rows.values() if isinstance(v, list)),
             default=1)
@@ -322,32 +330,45 @@ def make_ipm_solver(
     def empty(w):
         return w.new_zeros(w.shape[:-1] + (0,))
 
-    def eval_all(w, p):
+    def eval_all_(w, p):
         return (g(w, p) if m else empty(w)), (h(w, p) if q else empty(w))
 
     # Jacobian-vector products (used instead of materialized Jacobians
     # wherever possible, and exclusively in structured mode).  Row b of a
     # batched g depends on row b of w only, so one vjp/jvp over the batch
     # is the per-element product.
-    def jgT_mv(w, p, lam):
+    def jgT_mv_(w, p, lam):
         if not m:
             return torch.zeros_like(w)
         return torch.func.vjp(lambda ww: g(ww, p), w)[1](lam)[0]
 
-    def jhT_mv(w, p, nu):
+    def jhT_mv_(w, p, nu):
         if not q:
             return torch.zeros_like(w)
         return torch.func.vjp(lambda ww: h(ww, p), w)[1](nu)[0]
 
-    def jg_mv(w, p, dx):
+    def jg_mv_(w, p, dx):
         if not m:
             return empty(w)
         return torch.func.jvp(lambda ww: g(ww, p), (w,), (dx,))[1]
 
-    def jh_mv(w, p, dx):
+    def jh_mv_(w, p, dx):
         if not q:
             return empty(w)
         return torch.func.jvp(lambda ww: h(ww, p), (w,), (dx,))[1]
+
+    def at_point(fn):
+        """``fn`` as one IPM-level evaluation of the problem functions (span
+        ``oracle.point``).  The functions ending in ``_`` are the bare ones,
+        for composites that open one span of their own and for code under a
+        ``torch.func`` transform."""
+        def evaluated(*args):
+            with profiler.span("oracle.point"):
+                return fn(*args)
+        return evaluated
+
+    f_at, grad_f_at, eval_all, jgT_mv, jhT_mv, jg_mv, jh_mv = map(
+        at_point, (f, grad_f, eval_all_, jgT_mv_, jhT_mv_, jg_mv_, jh_mv_))
 
     # -- barrier helpers over the combined (w bounds, s >= 0) --------------
     def dist_l(w, s):
@@ -357,7 +378,7 @@ def make_ipm_solver(
         return torch.where(has_ub, ub - w, 1.0)
 
     def barrier_value(w, s, p, mu):
-        val = f(w, p)
+        val = f_at(w, p)
         dl = torch.where(has_lb, w - lb, 1.0)
         du = torch.where(has_ub, ub - w, 1.0)
         val = val - mu * torch.where(has_lb, torch.log(dl), 0.0).sum(-1)
@@ -373,12 +394,13 @@ def make_ipm_solver(
         return vio
 
     # -- KKT error ---------------------------------------------------------
+    @at_point
     def point_evals(w, lam, p):
         """(gradient, residuals, J^T lam) shared by the KKT-error check and
         the Newton step at the same point."""
         gf = grad_f(w, p)
-        gv, hv = eval_all(w, p)
-        jtl = jgT_mv(w, p, lam[:, :m]) + jhT_mv(w, p, lam[:, m:])
+        gv, hv = eval_all_(w, p)
+        jtl = jgT_mv_(w, p, lam[:, :m]) + jhT_mv_(w, p, lam[:, m:])
         return gf, gv, hv, jtl
 
     mask_l = torch.cat([has_lb, ones_q])
@@ -475,17 +497,17 @@ def make_ipm_solver(
         r_h_mod = r_h - r_ds * inv_sig_s
 
         def bvec(delta):
-            return T(delta).expand(B)
+            return profiler.to_device("delta", delta, dtype, device).expand(B)
 
         if structured_solve is not None:
             # derivatives + assembly once per Newton step; the retry ladder
             # and the second-order correction reuse the assembled system
             s_prepare, s_solve = structured_solve
-            with _range("kkt.prepare"):
+            with profiler.span("kkt.prepare"):
                 kkt_ctx = s_prepare(w, p, lam_g, lam_h, sig_w, inv_sig_s)
 
             def do_solve_rhs(r_dw_, r_g_, r_h_mod_, delta):
-                with _range("kkt.solve"):
+                with profiler.span("kkt.solve"):
                     return s_solve(kkt_ctx, r_dw_, r_g_, r_h_mod_,
                                    bvec(delta))
 
@@ -493,9 +515,10 @@ def make_ipm_solver(
                 # the multipliers of the assembled Hessian: the dual refit
                 # below rebinds lam_g/lam_h, but the operator of the
                 # residual and curvature checks must be the factored one
-                return (grad_f(ww, p) + jgT_mv(ww, p, _lg)
-                        + jhT_mv(ww, p, _lh))
+                return (grad_f(ww, p) + jgT_mv_(ww, p, _lg)
+                        + jhT_mv_(ww, p, _lh))
 
+            @at_point
             def hvp(dx):
                 # Lagrangian Hessian-vector product via jvp of the gradient
                 return torch.func.jvp(lag_grad, (w,), (dx,))[1]
@@ -576,7 +599,7 @@ def make_ipm_solver(
         prev_delta = prox
         for mult in (10.0, 1e2, 1e3, 1e5, 1e7)[:st.reg_retries]:
             bad = need_retry(step, prev_delta) & live
-            if not bool(bad.any()):
+            if not profiler.any_true("ladder", bad):
                 break
             delta = torch.clamp(torch.clamp(prox, min=1e-8) * mult,
                                 max=st.prox_max)
@@ -706,7 +729,7 @@ def make_ipm_solver(
         filt_ph0 = torch.where(_c(mu_dec), inf, stt.filt_ph)
         filt_n0 = torch.where(mu_dec, 0, stt.filt_n)
 
-        with _range("ipm.newton"):
+        with profiler.span("ipm.newton"):
             (dw, ds, dlam, dzl, dzu, resolve_soc, delta_used, dlam_pre,
              resolve_resto) = newton_step(w, s, lam, zl, zu, p, mu_new,
                                           stt.prox, pre, live)
@@ -733,9 +756,6 @@ def make_ipm_solver(
                               zl + _c(a_d_) * dzl_, zu + _c(a_d_) * dzu_, p,
                               mu_new)
             return torch.isfinite(err_t) & (err_t < 0.99 * err_ref)
-
-        theta_k = constraint_violation(pre[1], pre[2], s)
-        phi_k = barrier_value(w, s, p, mu_new)
 
         def ls_trial(alpha, dw_, ds_):
             """The l1-merit acceptance test at one step size
@@ -791,136 +811,149 @@ def make_ipm_solver(
                 & torch.where(sw, armijo, h_ok)
             return ok, sw & armijo
 
-        # full step if acceptable; else one second-order correction; else
-        # backtracking.  KKT-error decrease is an OR-acceptance that counts
-        # as f-type; it only matters where the filter test is not already
-        # an f-type acceptance, so it is computed when some element needs
-        # it and selected.
-        if filter_mode:
-            acc0, ft0 = accept_fn(a_p, dw, ds, gphi_dot(dw, ds))
-        else:
-            acc0 = ls_trial(a_p, dw, ds)
-            ft0 = torch.ones_like(acc0)
-        need_kd = ~(acc0 & ft0)
-        kd0 = _cond_any(need_kd & live,
-                        lambda: kkt_decrease(a_p, dw, ds, dlam, dzl, dzu,
-                                             a_d),
-                        torch.zeros_like(acc0))
-        kd0 = torch.where(need_kd, kd0, True)
-        ok_full = acc0 | kd0
-        f_type = ft0 | kd0
+        # the line search: the full-step acceptance test (filter or l1
+        # merit), the KKT-decrease test, SOC and the backtracking loop,
+        # through restoration, to the chosen step size
+        with profiler.span("ipm.line_search"):
+            theta_k = constraint_violation(pre[1], pre[2], s)
+            phi_k = barrier_value(w, s, p, mu_new)
 
-        def do_soc():
-            dw2, ds2, dlam2, dzl2, dzu2 = resolve_soc(a_p)
-            a_p2, a_d2 = fraction_to_boundary(w, s, dw2, ds2, zl, zu, dzl2,
-                                              dzu2, mu_new)
-            kd2 = kkt_decrease(a_p2, dw2, ds2, dlam2, dzl2, dzu2, a_d2)
+            # full step if acceptable; else one second-order correction;
+            # else backtracking.  KKT-error decrease is an OR-acceptance that
+            # counts as f-type; it only matters where the filter test is not
+            # already an f-type acceptance, so it is computed when some
+            # element needs it and selected.
             if filter_mode:
-                acc2, ft2 = accept_fn(a_p2, dw2, ds2, gphi_dot(dw2, ds2))
+                acc0, ft0 = accept_fn(a_p, dw, ds, gphi_dot(dw, ds))
             else:
-                acc2 = ls_trial(a_p2, dw2, ds2)
-                ft2 = torch.ones_like(acc2)
-            return (acc2 | kd2, ft2 | kd2, dw2, ds2, dlam2, dzl2, dzu2,
-                    a_p2, a_d2)
+                acc0 = ls_trial(a_p, dw, ds)
+                ft0 = torch.ones_like(acc0)
+            need_kd = ~(acc0 & ft0)
+            kd0 = _cond_any("kkt_decrease", need_kd & live,
+                            lambda: kkt_decrease(a_p, dw, ds, dlam, dzl, dzu,
+                                                 a_d),
+                            torch.zeros_like(acc0))
+            kd0 = torch.where(need_kd, kd0, True)
+            ok_full = acc0 | kd0
+            f_type = ft0 | kd0
 
-        no_soc = (torch.zeros_like(ok_full), torch.ones_like(ok_full), dw,
-                  ds, dlam, dzl, dzu, a_p, a_d)
-        if st.use_soc:
-            (soc_ok, soc_ft, dw2, ds2, dlam2, dzl2, dzu2, a_p2,
-             a_d2) = _cond_any(~ok_full & live, do_soc, no_soc)
-        else:
-            (soc_ok, soc_ft, dw2, ds2, dlam2, dzl2, dzu2, a_p2,
-             a_d2) = no_soc
-        use_soc = (~ok_full) & soc_ok
+            def do_soc():
+                dw2, ds2, dlam2, dzl2, dzu2 = resolve_soc(a_p)
+                a_p2, a_d2 = fraction_to_boundary(w, s, dw2, ds2, zl, zu,
+                                                  dzl2, dzu2, mu_new)
+                kd2 = kkt_decrease(a_p2, dw2, ds2, dlam2, dzl2, dzu2, a_d2)
+                if filter_mode:
+                    acc2, ft2 = accept_fn(a_p2, dw2, ds2, gphi_dot(dw2, ds2))
+                else:
+                    acc2 = ls_trial(a_p2, dw2, ds2)
+                    ft2 = torch.ones_like(acc2)
+                return (acc2 | kd2, ft2 | kd2, dw2, ds2, dlam2, dzl2, dzu2,
+                        a_p2, a_d2)
 
-        def pick(a, b):
-            return _sel(use_soc, b, a)
+            no_soc = (torch.zeros_like(ok_full), torch.ones_like(ok_full), dw,
+                      ds, dlam, dzl, dzu, a_p, a_d)
+            if st.use_soc:
+                (soc_ok, soc_ft, dw2, ds2, dlam2, dzl2, dzu2, a_p2,
+                 a_d2) = _cond_any("soc", ~ok_full & live, do_soc, no_soc)
+            else:
+                (soc_ok, soc_ft, dw2, ds2, dlam2, dzl2, dzu2, a_p2,
+                 a_d2) = no_soc
+            use_soc = (~ok_full) & soc_ok
 
-        dw, ds, dlam = pick(dw, dw2), pick(ds, ds2), pick(dlam, dlam2)
-        dzl, dzu = pick(dzl, dzl2), pick(dzu, dzu2)
-        a_p, a_d = pick(a_p, a_p2), pick(a_d, a_d2)
-        f_type = pick(f_type, soc_ft)
+            def pick(a, b):
+                return _sel(use_soc, b, a)
+
+            dw, ds, dlam = pick(dw, dw2), pick(ds, ds2), pick(dlam, dlam2)
+            dzl, dzu = pick(dzl, dzl2), pick(dzu, dzu2)
+            a_p, a_d = pick(a_p, a_p2), pick(a_d, a_d2)
+            f_type = pick(f_type, soc_ft)
+
+            if filter_mode:
+                # filter backtracking line search, seeded with the full-step
+                # decision: accepted elements take zero trips, and it runs
+                # while some element is unfinished, finished elements frozen
+                # (the JAX while_loop under vmap)
+                gphi_d = gphi_dot(dw, ds)
+                gneg = -torch.clamp(gphi_d, max=0.0)
+                amin2 = torch.where(
+                    gneg > 0,
+                    st.gamma_phi * theta_k / torch.clamp(gneg, min=_TINY),
+                    st.gamma_theta)
+                amin3 = torch.where(
+                    (gneg > 0) & (theta_k <= stt.th_min),
+                    st.delta_switch * theta_k ** st.s_theta
+                    / torch.clamp(gneg ** st.s_phi, min=_TINY), inf)
+                alpha_min = st.gamma_alpha * torch.minimum(
+                    torch.clamp(amin2, max=st.gamma_theta), amin3)
+
+                alpha, ls_done = a_p, ok_full | use_soc
+                k = torch.zeros_like(stt.it)
+                while True:
+                    go = ~ls_done & (k < st.ls_max) \
+                        & (alpha * 0.5 >= alpha_min)
+                    if not profiler.any_true("line_search", go & live):
+                        break
+                    a_try = alpha * 0.5
+                    ok_t, ft_t = accept_fn(a_try, dw, ds, gphi_d)
+                    alpha = torch.where(go, a_try, alpha)
+                    f_type = torch.where(go, ft_t, f_type)
+                    ls_done = ls_done | (go & ok_t)
+                    k = k + go
+                ls_failed = ~ls_done
+                alpha = torch.where(ls_failed, 0.0, alpha)
+
+                # -- feasibility restoration -------------------------------
+                # a failed line search takes a minimum-norm step onto the
+                # linearized constraints (backtracked on theta alone);
+                # failures at an already feasible point take the alpha_min
+                # fallback step
+                use_resto = ls_failed & (theta_k > 1e-12) if st.use_resto \
+                    else torch.zeros_like(ls_failed)
+
+                def do_resto():
+                    dwr, dsr, _, dzlr, dzur = resolve_resto()
+                    fin = _all_finite(dwr, dsr, dzlr, dzur)
+                    dwr = _sel(fin, dwr, torch.zeros_like(dwr))
+                    dsr = _sel(fin, dsr, torch.zeros_like(dsr))
+                    dzlr = _sel(fin, dzlr, torch.zeros_like(dzlr))
+                    dzur = _sel(fin, dzur, torch.zeros_like(dzur))
+                    a_pr, a_dr = fraction_to_boundary(w, s, dwr, dsr, zl, zu,
+                                                      dzlr, dzur, mu_new)
+                    al, r_ok = a_pr, ~use_resto
+                    for _ in range(12):
+                        go = ~r_ok
+                        if not profiler.any_true("resto_search", go & live):
+                            break
+                        s_t = s + _c(al) * dsr
+                        gv_t, hv_t = eval_all(w + _c(al) * dwr, p)
+                        th_t = constraint_violation(gv_t, hv_t, s_t)
+                        ok_t = torch.isfinite(th_t) & (
+                            th_t <= (1.0 - 1e-4 * al) * theta_k)
+                        al = torch.where(go & ~ok_t, al * 0.5, al)
+                        r_ok = r_ok | (go & ok_t)
+                    return dwr, dsr, dzlr, dzur, al, a_dr, r_ok
+
+                zero_r = (torch.zeros_like(dw), torch.zeros_like(ds),
+                          torch.zeros_like(dzl), torch.zeros_like(dzu),
+                          torch.zeros_like(alpha), torch.zeros_like(alpha),
+                          torch.zeros_like(use_resto))
+                dwr, dsr, dzlr, dzur, al_r, a_dr, r_ok = \
+                    _cond_any("resto", use_resto & live, do_resto, zero_r) \
+                    if st.use_resto else zero_r
+                use_resto = use_resto & r_ok
+                alpha = torch.where(use_resto, 0.0, alpha)
+                # fallback for unrestorable failures: the alpha_min step keeps
+                # strictly positive progress
+                fallback = ls_failed & ~use_resto
+                alpha = torch.where(
+                    fallback,
+                    torch.maximum(alpha_min, a_p * 0.5 ** st.ls_max), alpha)
 
         if not filter_mode:
             return merit_update(stt, p, mu_new, a_p, a_d, ok_full | use_soc,
                                 dw, ds, lam_b, dlam, dzl, dzu, delta_used,
                                 ls_trial, live, filt_th0, filt_ph0, filt_n0)
 
-        # filter backtracking line search, seeded with the full-step
-        # decision: accepted elements take zero trips, and it runs while
-        # some element is unfinished, finished elements frozen (the JAX
-        # while_loop under vmap)
-        gphi_d = gphi_dot(dw, ds)
-        gneg = -torch.clamp(gphi_d, max=0.0)
-        amin2 = torch.where(
-            gneg > 0, st.gamma_phi * theta_k / torch.clamp(gneg, min=_TINY),
-            st.gamma_theta)
-        amin3 = torch.where(
-            (gneg > 0) & (theta_k <= stt.th_min),
-            st.delta_switch * theta_k ** st.s_theta
-            / torch.clamp(gneg ** st.s_phi, min=_TINY), inf)
-        alpha_min = st.gamma_alpha * torch.minimum(
-            torch.clamp(amin2, max=st.gamma_theta), amin3)
-
-        alpha, ls_done = a_p, ok_full | use_soc
-        k = torch.zeros_like(stt.it)
-        while True:
-            go = ~ls_done & (k < st.ls_max) & (alpha * 0.5 >= alpha_min)
-            if not bool((go & live).any()):
-                break
-            a_try = alpha * 0.5
-            ok_t, ft_t = accept_fn(a_try, dw, ds, gphi_d)
-            alpha = torch.where(go, a_try, alpha)
-            f_type = torch.where(go, ft_t, f_type)
-            ls_done = ls_done | (go & ok_t)
-            k = k + go
-        ls_failed = ~ls_done
-        alpha = torch.where(ls_failed, 0.0, alpha)
-
-        # -- feasibility restoration ---------------------------------------
-        # a failed line search takes a minimum-norm step onto the
-        # linearized constraints (backtracked on theta alone); failures at
-        # an already feasible point take the alpha_min fallback step
-        use_resto = ls_failed & (theta_k > 1e-12) if st.use_resto \
-            else torch.zeros_like(ls_failed)
-
-        def do_resto():
-            dwr, dsr, _, dzlr, dzur = resolve_resto()
-            fin = _all_finite(dwr, dsr, dzlr, dzur)
-            dwr = _sel(fin, dwr, torch.zeros_like(dwr))
-            dsr = _sel(fin, dsr, torch.zeros_like(dsr))
-            dzlr = _sel(fin, dzlr, torch.zeros_like(dzlr))
-            dzur = _sel(fin, dzur, torch.zeros_like(dzur))
-            a_pr, a_dr = fraction_to_boundary(w, s, dwr, dsr, zl, zu, dzlr,
-                                              dzur, mu_new)
-            al, r_ok = a_pr, ~use_resto
-            for _ in range(12):
-                go = ~r_ok
-                if not bool((go & live).any()):
-                    break
-                s_t = s + _c(al) * dsr
-                gv_t, hv_t = eval_all(w + _c(al) * dwr, p)
-                th_t = constraint_violation(gv_t, hv_t, s_t)
-                ok_t = torch.isfinite(th_t) & (
-                    th_t <= (1.0 - 1e-4 * al) * theta_k)
-                al = torch.where(go & ~ok_t, al * 0.5, al)
-                r_ok = r_ok | (go & ok_t)
-            return dwr, dsr, dzlr, dzur, al, a_dr, r_ok
-
-        zero_r = (torch.zeros_like(dw), torch.zeros_like(ds),
-                  torch.zeros_like(dzl), torch.zeros_like(dzu),
-                  torch.zeros_like(alpha), torch.zeros_like(alpha),
-                  torch.zeros_like(use_resto))
-        dwr, dsr, dzlr, dzur, al_r, a_dr, r_ok = \
-            _cond_any(use_resto & live, do_resto, zero_r) if st.use_resto \
-            else zero_r
-        use_resto = use_resto & r_ok
-        alpha = torch.where(use_resto, 0.0, alpha)
-        # fallback for unrestorable failures: the alpha_min step keeps
-        # strictly positive progress
-        fallback = ls_failed & ~use_resto
-        alpha = torch.where(
-            fallback, torch.maximum(alpha_min, a_p * 0.5 ** st.ls_max), alpha)
         w_n = w + _c(alpha) * dw
         s_n = s + _c(alpha) * ds
         # select-gated, not multiplicative: 0 * NaN = NaN
@@ -960,19 +993,20 @@ def make_ipm_solver(
         on the l1 merit (seeded with the full-step decision ``done``), no
         restoration, and the Levenberg adaptation of the legacy rule."""
         w, s, zl, zu = stt.w, stt.s, stt.zl, stt.zu
-        alpha = a_p
-        k = torch.zeros_like(stt.it)
-        while True:
-            go = ~done & (k < st.ls_max)
-            if not bool((go & live).any()):
-                break
-            a_try = alpha * 0.5
-            ok_t = ls_trial(a_try, dw, ds)
-            alpha = torch.where(go, a_try, alpha)
-            done = done | (go & ok_t)
-            k = k + go
-        # a failed search takes a tiny step (keeps progress in the batch)
-        alpha = torch.where(done, alpha, a_p * 0.5 ** st.ls_max)
+        with profiler.span("ipm.line_search"):
+            alpha = a_p
+            k = torch.zeros_like(stt.it)
+            while True:
+                go = ~done & (k < st.ls_max)
+                if not profiler.any_true("line_search", go & live):
+                    break
+                a_try = alpha * 0.5
+                ok_t = ls_trial(a_try, dw, ds)
+                alpha = torch.where(go, a_try, alpha)
+                done = done | (go & ok_t)
+                k = k + go
+            # a failed search takes a tiny step (keeps progress in the batch)
+            alpha = torch.where(done, alpha, a_p * 0.5 ** st.ls_max)
         w_n = w + _c(alpha) * dw
         s_n = s + _c(alpha) * ds
         lam_n = lam_b + _c(alpha) * dlam
@@ -1026,7 +1060,7 @@ def make_ipm_solver(
         elements only.  An element whose KKT error is within ``etol``
         converges."""
         w, s, lam, zl, zu = stt.w, stt.s, stt.lam, stt.zl, stt.zu
-        with _range("ipm.evals"):
+        with profiler.span("ipm.evals"):
             pre = point_evals(w, lam, p)
             res0 = kkt_residuals(w, s, lam, zl, zu, p, pre=pre)
             err_0 = err_from(res0, 0.0)
@@ -1034,10 +1068,10 @@ def make_ipm_solver(
         old = (w, s, lam, zl, zu, stt.mu, stt.prox, stt.filt_th,
                stt.filt_ph, stt.filt_n)
         live = active & ~converged
-        if bool(live.any()):
+        if profiler.any_true("live", live):
             # a converged element is frozen (the JAX body computes its
             # step and discards it); it leaves the loop after this pass
-            with _range("ipm.step"):
+            with profiler.span("ipm.step"):
                 new = take_step(stt, p, pre, res0, err_from(res0, stt.mu),
                                 live)
             solve.newton_steps += 1
@@ -1075,7 +1109,7 @@ def make_ipm_solver(
         etol = loop_tol if exit_tol is None else exit_tol
         while True:
             active = ~state.converged & (state.it < cap)
-            if not bool(active.any()):
+            if not profiler.any_true("loop", active):
                 return state
             state = freeze(active, body(state, p, active, etol), state)
 
@@ -1088,9 +1122,9 @@ def make_ipm_solver(
     # with one sync per pass.
     def rti_newton(stt, p, mu, live):
         w, s, lam, zl, zu = stt.w, stt.s, stt.lam, stt.zl, stt.zu
-        with _range("ipm.evals"):
+        with profiler.span("ipm.evals"):
             pre = point_evals(w, lam, p)
-        with _range("ipm.newton"):
+        with profiler.span("ipm.newton"):
             (dw, ds, dlam, dzl, dzu, _soc, _delta, dlam_pre,
              _resto) = newton_step(w, s, lam, zl, zu, p, mu,
                                    torch.clamp(stt.prox, min=st.rti_prox),
@@ -1112,7 +1146,7 @@ def make_ipm_solver(
     def rti_loop(state, p):
         every = torch.ones_like(state.converged)
         final = state
-        with _range("ipm.rti"):
+        with profiler.span("ipm.rti"):
             for i in range(st.rti_iters):
                 final = rti_newton(final, p, state.mu * st.rti_mu_decay ** i,
                                    every)
@@ -1124,11 +1158,11 @@ def make_ipm_solver(
                             min=st.tol * st.mu_min_factor)
         final = final._replace(kkt_err=err)
         k = torch.zeros_like(state.it)
-        with _range("ipm.rti_drift"):
+        with profiler.span("ipm.rti_drift"):
             while True:
                 go = (final.kkt_err > st.rti_drift_tol) \
                     & (k < st.rti_extra_max)
-                if not bool(go.any()):
+                if not profiler.any_true("rti_drift", go):
                     break
                 nxt = rti_newton(final, p, mu_ex, go)
                 nxt = nxt._replace(kkt_err=kkt_error(
@@ -1154,7 +1188,8 @@ def make_ipm_solver(
                           torch.where(has_ub, hi - pu, inf))
         _, hv = eval_all(w, p)
         s = torch.clamp(-hv, min=st.slack_min) if q else empty(w)
-        mu = T(st.mu_init if mu0 is None else mu0).expand(B).clone()
+        mu = profiler.to_device("mu0", st.mu_init if mu0 is None else mu0,
+                                dtype, device).expand(B).clone()
         lam = w.new_zeros((B, m + q)) if lam0 is None else lam0
         z0v = st.z_init
         zl = torch.cat([torch.where(has_lb, z0v, 0.0),
@@ -1215,14 +1250,19 @@ def make_ipm_solver(
             + torch.where(has_ub, zu[:, :n] / du_w, 0.0)
         inv_sig_s = dl_s / torch.clamp(zl[:, n:], min=_TINY) if q \
             else empty(w)
-        r_dw = grad_f(w, p) - torch.where(has_lb, _c(mu) / dl_w, 0.0) \
+        r_dw = grad_f_at(w, p) - torch.where(has_lb, _c(mu) / dl_w, 0.0) \
             + torch.where(has_ub, _c(mu) / du_w, 0.0)
         r_h_ls = (_c(mu) / dl_s) * inv_sig_s if q else empty(w)
         zero_g, zero_h = w.new_zeros((B, m)), w.new_zeros((B, q))
-        delta = T(st.refit_delta).expand(B)
+        delta = profiler.to_device("delta", st.refit_delta, dtype,
+                                   device).expand(B)
         if structured_solve is not None:
-            ctx = structured_solve[0](w, p, zero_g, zero_h, sig_w, inv_sig_s)
-            _, dg, dh = structured_solve[1](ctx, r_dw, zero_g, r_h_ls, delta)
+            with profiler.span("kkt.prepare"):
+                ctx = structured_solve[0](w, p, zero_g, zero_h, sig_w,
+                                          inv_sig_s)
+            with profiler.span("kkt.solve"):
+                _, dg, dh = structured_solve[1](ctx, r_dw, zero_g, r_h_ls,
+                                                delta)
         else:
             Jg = jac_g(w, p) if m else w.new_zeros((B, 0, n))
             Jh = jac_h(w, p) if q else w.new_zeros((B, 0, n))
@@ -1258,7 +1298,7 @@ def make_ipm_solver(
         w_, lam_ = w, lam
         for _ in range(3):
             lam_g, lam_h = lam_[:, :m], lam_[:, m:]
-            r_dw = grad_f(w_, p) + jgT_mv(w_, p, lam_g) \
+            r_dw = grad_f_at(w_, p) + jgT_mv(w_, p, lam_g) \
                 + jhT_mv(w_, p, lam_h) \
                 + BIG * torch.where(act_b, w_ - target, 0.0)
             r_g, hv = eval_all(w_, p)
@@ -1267,10 +1307,12 @@ def make_ipm_solver(
             r_h_mod = hv - lam_h * inv_sig
             sig_pol = torch.where(act_b, BIG, 0.0)
             if structured_solve is not None:
-                ctx_ = structured_solve[0](w_, p, lam_g, lam_h, sig_pol,
-                                           inv_sig)
-                dw_, dg_, dh_ = structured_solve[1](ctx_, r_dw, r_g,
-                                                    r_h_mod, zero)
+                with profiler.span("kkt.prepare"):
+                    ctx_ = structured_solve[0](w_, p, lam_g, lam_h, sig_pol,
+                                               inv_sig)
+                with profiler.span("kkt.solve"):
+                    dw_, dg_, dh_ = structured_solve[1](ctx_, r_dw, r_g,
+                                                        r_h_mod, zero)
             else:
                 Jg_ = jac_g(w_, p) if m else w.new_zeros((B, 0, n))
                 Jh_ = jac_h(w_, p) if q else w.new_zeros((B, 0, n))
@@ -1282,7 +1324,7 @@ def make_ipm_solver(
             lam_ = _sel(good, lam_ + torch.cat([dg_, dh_], -1), lam_)
         # bound duals and slacks consistent with the polished point
         lam_gp, lam_hp = lam_[:, :m], lam_[:, m:]
-        r_stat = grad_f(w_, p) + jgT_mv(w_, p, lam_gp) \
+        r_stat = grad_f_at(w_, p) + jgT_mv(w_, p, lam_gp) \
             + jhT_mv(w_, p, lam_hp)
         zl_p = torch.cat([
             torch.where(act_lb, torch.clamp(r_stat, min=0.0), 0.0),
@@ -1310,44 +1352,30 @@ def make_ipm_solver(
             cap = st.rti_iters + (st.rti_extra_max
                                   if st.rti_drift_tol is not None else 0)
             final = solver_loop(state, p, it_cap=cap, exit_tol=etol)
-            # the budget exit leaves final.w one step past the last
-            # evaluated error: certify on the better evaluated point
-            err_fin = kkt_error(final.w, final.s, final.lam, final.zl,
-                                final.zu, p, 0.0)
-            wd = final.best_err < err_fin
-            w_r, s_r, lam_r, zl_r, zu_r = _select(
-                wd, (final.w, final.s, final.lam, final.zl, final.zu),
-                final.best)
-            err_r = torch.where(wd, final.best_err, err_fin)
-            return IPMSolution(
-                w=w_r, s=s_r, lam=lam_r, zl=zl_r, zu=zu_r, f=f(w_r, p),
-                kkt_err=err_r, iterations=final.it, success=err_r <= etol)
+            with profiler.span("ipm.finish"):
+                # the budget exit leaves final.w one step past the last
+                # evaluated error: certify on the better evaluated point
+                err_fin = kkt_error(final.w, final.s, final.lam, final.zl,
+                                    final.zu, p, 0.0)
+                wd = final.best_err < err_fin
+                w_r, s_r, lam_r, zl_r, zu_r = _select(
+                    wd, (final.w, final.s, final.lam, final.zl, final.zu),
+                    final.best)
+                err_r = torch.where(wd, final.best_err, err_fin)
+                return IPMSolution(
+                    w=w_r, s=s_r, lam=lam_r, zl=zl_r, zu=zu_r,
+                    f=f_at(w_r, p), kkt_err=err_r, iterations=final.it,
+                    success=err_r <= etol)
         final = rti_loop(state, p)
-        return IPMSolution(
-            w=final.w, s=final.s, lam=final.lam, zl=final.zl, zu=final.zu,
-            f=f(final.w, p), kkt_err=final.kkt_err, iterations=final.it,
-            success=final.converged)
+        with profiler.span("ipm.finish"):
+            return IPMSolution(
+                w=final.w, s=final.s, lam=final.lam, zl=final.zl,
+                zu=final.zu, f=f_at(final.w, p), kkt_err=final.kkt_err,
+                iterations=final.it, success=final.converged)
 
-    def solve_batch(w0, p, lam0, mu0, zl0, zu0):
-        state = init_state(w0, p, lam0=lam0, mu0=mu0, zl0=zl0, zu0=zu0)
-        if st.cold_dual_init and (m + q) and st.rti_iters == 0:
-            # cold elements (lam all zero) start from the least-squares
-            # multipliers; warm ones keep theirs
-            cold = _maxabs(state.lam) == 0.0
-            lam_ls = _cond_any(cold, lambda: estimate_duals(
-                state.w, state.s, state.zl, state.zu, p, state.mu),
-                torch.zeros_like(state.lam))
-            lam_n = _sel(cold, lam_ls, state.lam)
-            if st.debug:
-                _debug("cold_dual_init: pred={p} |lam_ls|={l:.2e}", p=cold,
-                       l=_maxabs(lam_ls))
-            state = state._replace(lam=lam_n, best=(
-                state.w, state.s, lam_n, state.zl, state.zu))
-        # RTI needs a warm primal-dual start: a cold call (no lam0) runs
-        # the full globalized loop
-        if st.rti_iters > 0 and lam0 is not None:
-            return solve_rti(state, p)
-        final = solver_loop(state, p)
+    def finish(final, p):
+        """The solution from the loop's final state: the watchdog's choice,
+        and the polish where it is on."""
         # a loose tol_loop exit certifies only at tol
         strict = final.converged if loop_tol <= st.tol \
             else final.converged & (final.kkt_err <= st.tol)
@@ -1359,7 +1387,7 @@ def make_ipm_solver(
             w_r, s_r, lam_r, zl_r, zu_r = _select(wd, cur, final.best)
             err_r = torch.where(wd, final.best_err, final.kkt_err)
             return IPMSolution(
-                w=w_r, s=s_r, lam=lam_r, zl=zl_r, zu=zu_r, f=f(w_r, p),
+                w=w_r, s=s_r, lam=lam_r, zl=zl_r, zu=zu_r, f=f_at(w_r, p),
                 kkt_err=err_r, iterations=final.it,
                 success=strict | (err_r <= st.tol))
         # watchdog: polish whichever of (final state, best-seen iterate)
@@ -1368,7 +1396,7 @@ def make_ipm_solver(
         wd = final.best_err < err_fin
         start = _select(wd, cur, final.best)
         err_ipm = torch.where(wd, final.best_err, err_fin)
-        with _range("ipm.polish"):
+        with profiler.span("ipm.polish"):
             pol = polish(*start, p)
         err_pol = kkt_error(*pol, p, 0.0)
         if st.debug:
@@ -1378,17 +1406,42 @@ def make_ipm_solver(
         w_f, s_f, lam_f, zl_f, zu_f = _select(better, start, pol)
         err_f = torch.where(better, err_pol, err_ipm)
         return IPMSolution(
-            w=w_f, s=s_f, lam=lam_f, zl=zl_f, zu=zu_f, f=f(w_f, p),
+            w=w_f, s=s_f, lam=lam_f, zl=zl_f, zu=zu_f, f=f_at(w_f, p),
             kkt_err=err_f, iterations=final.it,
             success=strict | (err_f <= st.tol))
 
+    def solve_batch(w0, p, lam0, mu0, zl0, zu0):
+        with profiler.span("ipm.init"):
+            state = init_state(w0, p, lam0=lam0, mu0=mu0, zl0=zl0, zu0=zu0)
+            if st.cold_dual_init and (m + q) and st.rti_iters == 0:
+                # cold elements (lam all zero) start from the least-squares
+                # multipliers; warm ones keep theirs
+                cold = _maxabs(state.lam) == 0.0
+                lam_ls = _cond_any("dual_init", cold, lambda: estimate_duals(
+                    state.w, state.s, state.zl, state.zu, p, state.mu),
+                    torch.zeros_like(state.lam))
+                lam_n = _sel(cold, lam_ls, state.lam)
+                if st.debug:
+                    _debug("cold_dual_init: pred={p} |lam_ls|={l:.2e}",
+                           p=cold, l=_maxabs(lam_ls))
+                state = state._replace(lam=lam_n, best=(
+                    state.w, state.s, lam_n, state.zl, state.zu))
+        # RTI needs a warm primal-dual start: a cold call (no lam0) runs
+        # the full globalized loop
+        if st.rti_iters > 0 and lam0 is not None:
+            return solve_rti(state, p)
+        final = solver_loop(state, p)
+        with profiler.span("ipm.finish"):
+            return finish(final, p)
+
     def solve(w0, p, lam0=None, mu0=None, zl0=None, zu0=None, lb_dyn=None,
               ub_dyn=None):
-        def to(x):
-            return None if x is None else torch.as_tensor(
-                x, dtype=dtype, device=device)
+        def to(site, x):
+            return None if x is None else profiler.to_device(
+                site, x, dtype, device)
         w0, p, lam0, zl0, zu0, lb_dyn, ub_dyn = map(
-            to, (w0, p, lam0, zl0, zu0, lb_dyn, ub_dyn))
+            to, ("w0", "p", "lam0", "zl0", "zu0", "bounds", "bounds"),
+            (w0, p, lam0, zl0, zu0, lb_dyn, ub_dyn))
         if lb_dyn is None and ub_dyn is None:
             return solve_batch(w0, p, lam0, mu0, zl0, zu0)
         if not dynamic_bounds:

@@ -23,8 +23,9 @@ JSON to ``--out`` when given:
   (the profiler slows the host, not the kernels);
 * kernel launches in the step, and the device time by kernel name (top 15),
   with the band kernels' time and launches;
-* host time in the solver's annotated ranges (inclusive: ``kkt.solve`` and
-  ``kkt.bbd_solve`` also run inside ``ipm.step`` and ``ipm.polish``);
+* host time in the port's spans (``tools/_profiler.py:SPANS``, by name;
+  inclusive: ``kkt.solve`` also runs inside ``ipm.step``, ``oracle.point``
+  inside the ``ipm.*`` spans, ``sync.<site>`` inside both);
 * the card's name and power limit (``nvidia-smi``).
 
 Needs CUDA; exits non-zero without it.
@@ -39,8 +40,10 @@ from pathlib import Path
 
 import numpy as np
 
+from dompc_tpu_torch.tools._profiler import SPANS
 
-RANGES = ("dompc_tpu_torch.", "ipm.", "kkt.")   # record_function names
+# the prefixes of the port's span names ("batch.", "ipm.", ...)
+RANGES = tuple(sorted({name.split(".")[0] + "." for name in SPANS}))
 
 
 def _card():

@@ -637,3 +637,111 @@ def test_structured_and_onnx_ops_on_card_match_cpu():
     for got, ref in zip(run("cuda"), run("cpu")):
         assert got.shape == ref.shape
         np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12)
+
+
+# -- the port's spans on the card ----------------------------------------------
+
+def _kineto(prof):
+    """(host annotation ranges, device operations) of a stopped profiler,
+    each as sorted (name, start_ns, end_ns) on the profiler's clock."""
+    cpu = torch.autograd.DeviceType.CPU
+    cuda = torch.autograd.DeviceType.CUDA
+    ranges, ops = [], []
+    for e in prof.profiler.kineto_results.events():
+        r = (e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+        if e.is_user_annotation():
+            if e.device_type() == cpu:
+                ranges.append(r)
+        elif e.device_type() == cuda:
+            ops.append(r)
+    return sorted(ranges, key=lambda r: (r[1], -r[2])), sorted(ops)
+
+
+@pytest.fixture(scope="module")
+def warm_call_on_card():
+    """One warm float32 throughput-mode call of the robust CSTR (N = 20) at
+    B = 256, traced (host ranges and CUDA events) under
+    ``torch.cuda.set_sync_debug_mode("warn")``: the trace, the sync
+    warnings raised inside ``solve_batch`` and the helper's own count."""
+    import warnings
+    from dompc_tpu_torch.parallel import (make_batch_solver,
+                                          initial_guess_from_x0)
+    from dompc_tpu_torch.systems import bench_states, cstr_robust_mpc
+    from dompc_tpu_torch.tools import profiler
+    _needs_card()
+    with pytest.MonkeyPatch.context() as mp:
+        _port_env(mp, x64=False)
+        mpc = cstr_robust_mpc(n_horizon=20, n_robust=1)
+    solve = make_batch_solver(mpc, tol=1e-3, max_iter=60,
+                              throughput_mode=True)
+    x0s = bench_states(256)
+    cold, _ = solve(x0s, initial_guess_from_x0(mpc, x0s))
+    warm, _ = solve(x0s * 1.001, cold.w, cold.lam, 1e-4, cold.zl, cold.zu)
+    torch.cuda.synchronize()
+    count0 = profiler.host_sync.count
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                sol, _ = solve(x0s * 1.002, warm.w, warm.lam, 1e-4, warm.zl,
+                               warm.zu)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    ranges, ops = _kineto(prof)
+    return dict(ranges=ranges, ops=ops,
+                warnings=[w for w in caught if "called a synchronizing"
+                          in str(w.message)],
+                syncs=profiler.host_sync.count - count0,
+                success=bool(sol.success.all()))
+
+
+@pytest.mark.cuda
+def test_sync_warnings_equal_sync_spans_on_card(warm_call_on_card):
+    """Every blocking read inside ``solve_batch`` opens one ``sync.*``
+    span: torch's sync warnings, the spans and the helper's count agree."""
+    got = warm_call_on_card
+    assert got["success"]
+    spans = [r for r in got["ranges"] if r[0].startswith("sync.")]
+    sites = [f"{w.filename}:{w.lineno}" for w in got["warnings"]]
+    assert len(got["warnings"]) == len(spans) == got["syncs"] > 0, (
+        sites, [r[0] for r in spans])
+
+
+@pytest.mark.cuda
+def test_sync_spans_close_after_the_queue_drains_on_card(warm_call_on_card):
+    """One clock for host spans and device events: a sync cannot return
+    before the card has drained its queue, so every device operation that
+    starts before a ``sync.*`` span opens ends before the span closes
+    (20 us allowed)."""
+    got = warm_call_on_card
+    spans = [r for r in got["ranges"] if r[0].startswith("sync.")]
+    assert spans and got["ops"]
+    for name, s, e in spans:
+        late = [op for op in got["ops"] if op[1] < s and op[2] > e + 20_000]
+        assert not late, (name, s, e, late[:3])
+
+
+def _covered(ranges, parent, children):
+    """Share of the ``parent`` ranges' time that their ``children`` ranges
+    cover (children of one thread do not overlap)."""
+    total = covered = 0
+    for name, s, e in ranges:
+        if name == parent:
+            total += e - s
+            covered += sum(b - a for n, a, b in ranges
+                           if n in children and a >= s and b <= e)
+    return covered / total
+
+
+@pytest.mark.cuda
+def test_kkt_child_spans_cover_their_parents_on_card(warm_call_on_card):
+    ranges = warm_call_on_card["ranges"]
+    assert _covered(ranges, "kkt.prepare", {
+        "oracle.gather", "oracle.hessian", "oracle.jacobian"}) >= 0.9
+    assert _covered(ranges, "kkt.solve", {
+        "kkt.condense", "kkt.assemble", "kkt.bbd_solve",
+        "kkt.expand"}) >= 0.9
