@@ -186,7 +186,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    backend's.
 
 Every kernel counter is set to 0 just before each path and read just
-after.  Phases 2-7 run one after another in the main process (with 17
+after.  Each path of the main process and each subprocess prints the
+counters of the IPM's point-evaluation graphs over it (a line
+``oracle_graph {"path": ..., "captures", "replays", "eager",
+"failures"}``, tools/_profiler.py:oracle_graph); branch-and-bound's
+records give the captures of every frontier expansion, and phase 13's
+float64 subprocess its peak of allocated device memory.  Phases 2-7 run one after another in the main process (with 17
 after 3, 16a-b, 14's float32 flagship and 13's float32 MINLP); then the
 float64 subprocesses of phases 4 and 6, of 8-9 (with 16c-d), of 10 and of 13
 run side by side, and the main process echoes their lines in that
@@ -2150,12 +2155,29 @@ def minlp_brute_force(x0):
 
 
 @contextlib.contextmanager
+def graph_counts(path):
+    """Print the counters of the IPM's point-evaluation graphs
+    (``tools/_profiler.py:oracle_graph``) over one path: keys captured,
+    evaluations replayed, evaluations run eagerly, failed captures."""
+    from dompc_tpu_torch.tools import _profiler as profiler
+    before = dict(vars(profiler.oracle_graph))
+    try:
+        yield
+    finally:
+        print("oracle_graph " + json.dumps(dict(path=path, **{
+            k: v - before[k] for k, v in vars(profiler.oracle_graph).items()
+        })), flush=True)
+
+
+@contextlib.contextmanager
 def expansion_watch(record=False):
     """Per frontier expansion of branch-and-bound (one call of
-    ``BranchAndBound._node_solve``): its nodes, band_qr's launches and the
-    chains of each launch.  With ``record``, a copy of the first
+    ``BranchAndBound._node_solve``): its nodes, band_qr's launches, the
+    chains of each launch, and the point-evaluation graphs it captured.
+    With ``record``, a copy of the first
     expansion's band sweeps is kept for :func:`check_recorded`."""
     from dompc_tpu_torch.solver import band_qr, minlp
+    from dompc_tpu_torch.tools import _profiler as profiler
     real_node, real_band = minlp.BranchAndBound._node_solve, \
         band_qr.band_solve
     out = dict(expansions=[], recorded=[], current=None)
@@ -2172,11 +2194,12 @@ def expansion_watch(record=False):
     def node(self, *args):
         cur = dict(nodes=int(args[5].shape[0]), chains=[], shapes=set())
         out["current"] = cur
-        n0 = real_band.launches
+        n0, c0 = real_band.launches, profiler.oracle_graph.captures
         try:
             return real_node(self, *args)
         finally:
             cur["launches"] = real_band.launches - n0
+            cur["captures"] = profiler.oracle_graph.captures - c0
             cur["shapes"] = sorted(list(sh) for sh in cur["shapes"])
             out["expansions"].append(cur)
             out["current"] = None
@@ -2283,6 +2306,7 @@ def expansion_summary(expansions):
         expansions=len(expansions),
         nodes_per_expansion=[e["nodes"] for e in expansions],
         launches_per_expansion=[e["launches"] for e in expansions],
+        captures_per_expansion=[e["captures"] for e in expansions],
         chains_per_launch=sorted({c for e in expansions for c in e["chains"]}),
         shapes=sorted({tuple(sh) for e in expansions for sh in e["shapes"]}))
 
@@ -2292,6 +2316,7 @@ def minlp_f64():
     MINLP's three flows (against the brute-force optimum and against the
     port on the CPU) and Lotka-Volterra's closed loop (its CPU yardstick
     runs in a process of its own, :func:`zoo_cpu`)."""
+    import torch
     from dompc_tpu_torch.solver import band_qr
     check(os.environ.get("DOMPC_TPU_X64") == "1", "child needs X64")
     rec = {}
@@ -2363,6 +2388,7 @@ def minlp_f64():
     print("minlp_lv " + json.dumps({k: v for k, v in lv.items()
                                     if k not in ("u", "x")}), flush=True)
     rec["lv"] = lv
+    rec["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print("MINLP_RESULT " + json.dumps(rec), flush=True)
 
 
@@ -3591,31 +3617,39 @@ def main():
     # dynamic bicycle, each against the default backend from the same state
     say("the tiled kernel on real paths float32: the tridiag MHE (b=83) and "
         "the dynamic bicycle (b=21), each backend:")
-    tiled_paths = tiled_paths_phase()
+    with graph_counts("tiled_paths_f32"):
+        tiled_paths = tiled_paths_phase()
 
     # 4. make_step, float32 here, float64 (and phase 6) in a child process
     # afterwards (one at a time: the host times are the step's own)
     say("make_step float32:")
-    run32 = drive_main_path(MAIN_STEPS, f32_settings=True, record=True)
+    with graph_counts("make_step_f32"):
+        run32 = drive_main_path(MAIN_STEPS, f32_settings=True, record=True)
     kkt = check_recorded(run32.pop("recorded"), "band_qr",
                          band_qr.band_solve, "float32 make_step 0")
     # 5. batched serving, float32
     say("batched serving float32, B=128:")
-    batched = batched_phase()
+    with graph_counts("batched_f32_B128"):
+        batched = batched_phase()
     # 7. RTI serving, float32, from phase 5's default-backend solution
     say("RTI serving float32, B=128:")
-    rti = rti_phase(batched.pop("rti_start"))
+    with graph_counts("rti_f32_B128"):
+        rti = rti_phase(batched.pop("rti_start"))
     # 16a and 16b, float32: sharded serving and trace capture
     say("sharded serving float32, B=128, over a one-rank NCCL group:")
-    sharded = sharded_phase(batched.pop("shard_start"))
+    with graph_counts("sharded_f32_B128"):
+        sharded = sharded_phase(batched.pop("shard_start"))
     say("trace capture of a warm make_step float32:")
-    traced = trace_phase(run32)
+    with graph_counts("traced_make_step_f32"):
+        traced = trace_phase(run32)
     # 14, float32: the flagship with n_refine_kkt=1 against the default
     say("flagship float32, n_refine_kkt=1 against the default:")
-    refine = refine_f32()
+    with graph_counts("refine_f32"):
+        refine = refine_f32()
     # 13, float32: the scalar MINLP once, recorded without a gate
     say("scalar MINLP float32 (recorded, no gate):")
-    minlp32 = minlp_scalar_run("bnb", 1)
+    with graph_counts("minlp_scalar_f32"):
+        minlp32 = minlp_scalar_run("bnb", 1)
     minlp32_rec = dict(minlp32["steps"][0], launches=minlp32["launches"],
                        tiled_launches=minlp32["tiled_launches"],
                        **expansion_summary(minlp32["expansions"]))
@@ -3871,36 +3905,16 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+CHILDREN = {"--main-path-f64": main_path_f64,
+            "--closed-loop-f64": closed_loop_f64, "--mhe-f64": mhe_f64,
+            "--dip-f64": dip_lqr_f64, "--dip-cpu": dip_cpu_f64,
+            "--dip-f32": dip_card_f32, "--minlp-f64": minlp_f64,
+            "--zoo-f64": zoo_f64, "--zoo-cpu": zoo_cpu, "--ampc": ampc_child}
+
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--main-path-f64"]:
+    if len(sys.argv) == 2 and sys.argv[1] in CHILDREN:
         sys.path.insert(0, ROOT)
-        main_path_f64()
-    elif sys.argv[1:] == ["--closed-loop-f64"]:
-        sys.path.insert(0, ROOT)
-        closed_loop_f64()
-    elif sys.argv[1:] == ["--mhe-f64"]:
-        sys.path.insert(0, ROOT)
-        mhe_f64()
-    elif sys.argv[1:] == ["--dip-f64"]:
-        sys.path.insert(0, ROOT)
-        dip_lqr_f64()
-    elif sys.argv[1:] == ["--dip-cpu"]:
-        sys.path.insert(0, ROOT)
-        dip_cpu_f64()
-    elif sys.argv[1:] == ["--dip-f32"]:
-        sys.path.insert(0, ROOT)
-        dip_card_f32()
-    elif sys.argv[1:] == ["--minlp-f64"]:
-        sys.path.insert(0, ROOT)
-        minlp_f64()
-    elif sys.argv[1:] == ["--zoo-f64"]:
-        sys.path.insert(0, ROOT)
-        zoo_f64()
-    elif sys.argv[1:] == ["--zoo-cpu"]:
-        sys.path.insert(0, ROOT)
-        zoo_cpu()
-    elif sys.argv[1:] == ["--ampc"]:
-        sys.path.insert(0, ROOT)
-        ampc_child()
+        with graph_counts(sys.argv[1][2:]):
+            CHILDREN[sys.argv[1]]()
     else:
         main()

@@ -26,8 +26,10 @@ no element needs it) is a host-side ``if`` on the predicate's ``any()``.
 
 The solve runs under the spans of ``tools/_profiler.py:SPANS``: ``ipm.*``
 around its phases, ``oracle.point`` around every evaluation of the
-problem functions at a point, and ``sync.<site>`` around every blocking
-read of the device (``profiler.any_true``, ``profiler.to_device``).
+problem functions at a point (on CUDA replayed as a captured graph from a
+shape's second evaluation on, ``solver/_graphs.py``), and ``sync.<site>``
+around every blocking read of the device (``profiler.any_true``,
+``profiler.to_device``).
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ import torch
 
 from .._config import resolve_device, resolve_dtype
 from ..tools import _profiler as profiler
+from ._graphs import GraphCache
 
 
 @dataclass(frozen=True)
@@ -252,6 +255,7 @@ def make_ipm_solver(
     dtype: Optional[torch.dtype] = None,
     device: Optional[torch.device] = None,
     _bound_masks=None,
+    _graphs=None,
 ):
     """Build ``solve(w0, p, lam0=None, mu0=None, zl0=None, zu0=None,
     lb_dyn=None, ub_dyn=None) -> IPMSolution``.
@@ -277,6 +281,10 @@ def make_ipm_solver(
     ``device`` and ``dtype`` default to the environment's choice
     (``DOMPC_TPU_PLATFORM``, ``DOMPC_TPU_X64``): CUDA unless the CPU is
     asked for.
+
+    ``solve.graphs`` is the ``GraphCache`` of its point evaluations
+    (``solver/_graphs.py``; ``solve.graphs.functions`` names them), which
+    lives and dies with the solver.
 
     ``dynamic_bounds=True`` lets a call pass per-element bound values
     ``lb_dyn``/``ub_dyn`` (B, n), as branch-and-bound's node batches do;
@@ -357,18 +365,44 @@ def make_ipm_solver(
             return empty(w)
         return torch.func.jvp(lambda ww: h(ww, p), (w,), (dx,))[1]
 
-    def at_point(fn):
+    def hvp_(w, p, lam_g, lam_h, dx):
+        """Lagrangian Hessian-vector product via jvp of the gradient."""
+        def lag_grad(ww):
+            return (grad_f(ww, p) + jgT_mv_(ww, p, lam_g)
+                    + jhT_mv_(ww, p, lam_h))
+        return torch.func.jvp(lag_grad, (w,), (dx,))[1]
+
+    def point_evals_(w, lam, p):
+        """(gradient, residuals, J^T lam) shared by the KKT-error check and
+        the Newton step at the same point."""
+        gf = grad_f(w, p)
+        gv, hv = eval_all_(w, p)
+        jtl = jgT_mv_(w, p, lam[:, :m]) + jhT_mv_(w, p, lam[:, m:])
+        return gf, gv, hv, jtl
+
+    # the dynamic-bounds call's solver evaluates its maker's functions
+    # (none reads the bounds), so their graphs serve every such call
+    graphs = GraphCache() if _graphs is None else _graphs
+
+    def at_point(name, fn):
         """``fn`` as one IPM-level evaluation of the problem functions (span
-        ``oracle.point``).  The functions ending in ``_`` are the bare ones,
+        ``oracle.point``), replayed as a captured CUDA graph where the
+        solver's ``GraphCache`` can (``solver/_graphs.py``), which holds it
+        under ``name``.  The functions ending in ``_`` are the bare ones,
         for composites that open one span of their own and for code under a
         ``torch.func`` transform."""
+        fn = graphs.register(name, fn)
+
         def evaluated(*args):
             with profiler.span("oracle.point"):
-                return fn(*args)
+                return graphs(fn, args)
         return evaluated
 
-    f_at, grad_f_at, eval_all, jgT_mv, jhT_mv, jg_mv, jh_mv = map(
-        at_point, (f, grad_f, eval_all_, jgT_mv_, jhT_mv_, jg_mv_, jh_mv_))
+    (f_at, grad_f_at, eval_all, jgT_mv, jhT_mv, jg_mv, jh_mv, lag_hvp,
+     point_evals) = (at_point(*item) for item in dict(
+         f=f, grad_f=grad_f, eval_all=eval_all_, jgT_mv=jgT_mv_,
+         jhT_mv=jhT_mv_, jg_mv=jg_mv_, jh_mv=jh_mv_, hvp=hvp_,
+         point_evals=point_evals_).items())
 
     # -- barrier helpers over the combined (w bounds, s >= 0) --------------
     def dist_l(w, s):
@@ -394,15 +428,6 @@ def make_ipm_solver(
         return vio
 
     # -- KKT error ---------------------------------------------------------
-    @at_point
-    def point_evals(w, lam, p):
-        """(gradient, residuals, J^T lam) shared by the KKT-error check and
-        the Newton step at the same point."""
-        gf = grad_f(w, p)
-        gv, hv = eval_all_(w, p)
-        jtl = jgT_mv_(w, p, lam[:, :m]) + jhT_mv_(w, p, lam[:, m:])
-        return gf, gv, hv, jtl
-
     mask_l = torch.cat([has_lb, ones_q])
     mask_zu = torch.cat([has_ub, zeros_qb])
 
@@ -511,17 +536,11 @@ def make_ipm_solver(
                     return s_solve(kkt_ctx, r_dw_, r_g_, r_h_mod_,
                                    bvec(delta))
 
-            def lag_grad(ww, _lg=lam_g, _lh=lam_h):
+            def hvp(dx, _lg=lam_g, _lh=lam_h):
                 # the multipliers of the assembled Hessian: the dual refit
                 # below rebinds lam_g/lam_h, but the operator of the
                 # residual and curvature checks must be the factored one
-                return (grad_f(ww, p) + jgT_mv_(ww, p, _lg)
-                        + jhT_mv_(ww, p, _lh))
-
-            @at_point
-            def hvp(dx):
-                # Lagrangian Hessian-vector product via jvp of the gradient
-                return torch.func.jvp(lag_grad, (w,), (dx,))[1]
+                return lag_hvp(w, p, _lg, _lh, dx)
         else:
             Jg = jac_g(w, p) if m else w.new_zeros((B, 0, n))
             Jh = jac_h(w, p) if q else w.new_zeros((B, 0, n))
@@ -1456,10 +1475,12 @@ def make_ipm_solver(
             n_eq, n_ineq, settings=settings, kkt_solve=kkt_solve,
             hess_fn=hess_fn, grad_f_fn=grad_f_fn, jac_g_fn=jac_g_fn,
             jac_h_fn=jac_h_fn, structured_solve=structured_solve,
-            dtype=dtype, device=device, _bound_masks=(has_lb, has_ub))
+            dtype=dtype, device=device, _bound_masks=(has_lb, has_ub),
+            _graphs=graphs)
         out = inner(w0, p, lam0, mu0, zl0, zu0)
         solve.newton_steps += inner.newton_steps
         return out
 
     solve.newton_steps = 0
+    solve.graphs = graphs
     return solve

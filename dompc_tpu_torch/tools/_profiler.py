@@ -13,7 +13,8 @@ Inside the solve the port opens the spans of :data:`SPANS` through
 shared no-op context otherwise, so they stay on the hot path.  Every
 blocking read of the device on the solve path opens a ``sync.<site>``
 span through :func:`host_sync` (and :func:`any_true`,
-:func:`to_device`), which also counts it in ``host_sync.count``.  One
+:func:`to_device`), which also counts it in ``host_sync.count``; the
+point evaluations' CUDA graphs count in :data:`oracle_graph`.  One
 trace runs at a time in a process, as with ``jax.profiler``.
 """
 import contextlib
@@ -21,6 +22,7 @@ import os
 import pickle
 import socket
 import time
+import types
 
 import torch
 
@@ -56,6 +58,9 @@ SPANS = {
                   "final KKT error, the polish selection, f(w)",
     "oracle.point": "IPM point evaluations (solver/ipm.py): f, g, h, grad f "
                     "and Jacobian products at one point; never nested",
+    "oracle.replay": "inside oracle.point: the evaluation replayed as a "
+                     "captured CUDA graph (solver/_graphs.py): arguments "
+                     "copied in, the replay, outputs cloned",
     "oracle.gather": "derivative oracles (controller/_mpc.py): the instance "
                      "inputs gathered from (w, pvec)",
     "oracle.hessian": "derivative oracles: vmap(d2_lag) with the instance "
@@ -117,6 +122,12 @@ def host_sync(site):
 
 
 host_sync.count = 0
+
+# The point evaluations' CUDA graphs (solver/_graphs.py): keys captured,
+# evaluations replayed, evaluations run eagerly (the CPU, a key's first
+# sight, autograd or torch.func, a failed capture) and failed captures.
+oracle_graph = types.SimpleNamespace(captures=0, replays=0, eager=0,
+                                     failures=0)
 
 
 def any_true(site, pred):

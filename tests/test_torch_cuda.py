@@ -745,3 +745,199 @@ def test_kkt_child_spans_cover_their_parents_on_card(warm_call_on_card):
     assert _covered(ranges, "kkt.solve", {
         "kkt.condense", "kkt.assemble", "kkt.bbd_solve",
         "kkt.expand"}) >= 0.9
+
+
+# -- the point evaluations' CUDA graphs (solver/_graphs.py) ------------------
+
+def _graph_counts():
+    from dompc_tpu_torch.tools import profiler
+    c = profiler.oracle_graph
+    return np.array([c.captures, c.replays, c.eager, c.failures])
+
+
+@pytest.fixture(scope="module")
+def cstr_f32_on_card():
+    """The robust CSTR (N = 20) in float32 on the card, B = 256 of bench.py's
+    states, with the batched entry's parameter vectors."""
+    from dompc_tpu_torch.systems import bench_states, cstr_robust_mpc
+    _needs_card()
+    with pytest.MonkeyPatch.context() as mp:
+        _port_env(mp, x64=False)
+        mpc = cstr_robust_mpc(n_horizon=20, n_robust=1)
+    x0s = bench_states(256)
+    pvec = torch.as_tensor(mpc._assemble_opt_p(np.zeros(mpc.model.n_x)),
+                           dtype=mpc._dtype, device=mpc._device)
+    pvec = pvec.expand(len(x0s), -1).clone()
+    pvec[:, mpc._p_sl["x0"]] = torch.as_tensor(x0s, dtype=mpc._dtype,
+                                               device=mpc._device)
+    return mpc, x0s, pvec
+
+
+def _solver(mpc):
+    from dompc_tpu_torch.parallel import make_batch_solver
+    return make_batch_solver(mpc, tol=1e-3, max_iter=60,
+                             throughput_mode=True)
+
+
+@pytest.mark.cuda
+def test_point_evaluations_replay_equal_eager_on_card(cstr_f32_on_card):
+    """Each point evaluation of the IPM, replayed as a graph at points it
+    was not captured at, equals its bare eager evaluation to float32
+    roundoff; a key not seen in the solve runs eagerly once, captures at
+    its second sight and replays from its third."""
+    from dompc_tpu_torch.parallel import initial_guess_from_x0
+    mpc, x0s, pvec = cstr_f32_on_card
+    solve = _solver(mpc)
+    sol, _ = solve(x0s, initial_guess_from_x0(mpc, x0s))
+    assert bool(sol.success.all())
+    m = mpc.n_opt_lagr
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    points = []
+    for k in range(4):
+        dx = 1e-2 * torch.randn(sol.w.shape, generator=gen, device="cuda",
+                                dtype=sol.w.dtype)
+        points.append((sol.w * (1 + 1e-3 * k), sol.lam * (1 + 1e-2 * k), dx))
+    cases = {
+        "point_evals": lambda w, lam, dx: (w, lam, pvec),
+        "eval_all": lambda w, lam, dx: (w, pvec),
+        "jgT_mv": lambda w, lam, dx: (w, pvec, lam[:, :m]),
+        "jg_mv": lambda w, lam, dx: (w, pvec, dx),
+        "hvp": lambda w, lam, dx: (w, pvec, lam[:, :m], lam[:, m:], dx),
+    }
+    graphs = solve.ipm.graphs
+    for name, args_of in cases.items():
+        fn = graphs.functions[name]
+        before = _graph_counts()
+        for point in points:
+            args = args_of(*point)
+            got = graphs(fn, args)
+            ref = fn(*args)
+            got, ref = (got, ref) if isinstance(got, tuple) else \
+                ((got,), (ref,))
+            for a, b in zip(got, ref):
+                if b.numel():
+                    err = float((a - b).abs().max())
+                    assert err <= 1e-6 * max(float(b.abs().max()), 1e-30), \
+                        (name, err)
+        captures, replays, eager, failures = _graph_counts() - before
+        seen = name in ("point_evals", "eval_all")   # the solve's keys
+        assert (captures, replays, eager, failures) == (
+            (0, 4, 0, 0) if seen else (1, 2, 1, 0)), name
+
+
+@pytest.mark.cuda
+def test_solves_with_graphs_equal_bare_on_card(cstr_f32_on_card,
+                                               monkeypatch):
+    """A cold and a warm B = 256 call take the same Newton steps to the
+    same KKT errors with the graphs as shipped and with every evaluation
+    bare; with the graphs each key of the solve captures once and replays
+    after it."""
+    from dompc_tpu_torch.parallel import initial_guess_from_x0
+    from dompc_tpu_torch.solver import _graphs
+    mpc, x0s, _ = cstr_f32_on_card
+
+    def run():
+        solve = _solver(mpc)
+        before = _graph_counts()
+        cold, _ = solve(x0s, initial_guess_from_x0(mpc, x0s))
+        steps_cold = solve.ipm.newton_steps
+        warm, _ = solve(x0s * 1.001, cold.w, cold.lam, 1e-4, cold.zl,
+                        cold.zu)
+        return (cold, warm, steps_cold, solve.ipm.newton_steps - steps_cold,
+                _graph_counts() - before, solve.ipm.graphs)
+
+    shipped = run()
+    monkeypatch.setattr(_graphs.GraphCache, "_eligible",
+                        lambda self, args: False)
+    bare = run()
+    assert shipped[2:4] == bare[2:4] and shipped[2] > 1
+    for a, b in zip(shipped[:2], bare[:2]):
+        assert bool(a.success.all()) and bool(b.success.all())
+        assert torch.equal(a.iterations, b.iterations)
+        assert float((a.kkt_err - b.kkt_err).abs().max()) <= 1e-6
+    captures, replays, eager, failures = shipped[4]
+    states = list(shipped[5]._keys.values())
+    graphs = [s for s in states if isinstance(s, _graphs._Graph)]
+    assert failures == 0 and len(graphs) == len(states) == captures >= 3
+    assert replays > 10 * captures
+    assert tuple(bare[4][:2]) == (0, 0) and bare[4][3] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("host_op", ["item", "pageable_copy"])
+def test_failed_capture_stays_eager_on_card(host_op):
+    """An evaluation that reads the card from the host, or copies a host
+    value in, cannot be captured: its key counts one failure and runs
+    eagerly for good, equal to the bare evaluation, and another key of the
+    same cache still captures and replays equal to its own."""
+    from dompc_tpu_torch.solver._graphs import GraphCache
+    _needs_card()
+
+    def host_bound(x, y):
+        if host_op == "item":
+            scale = float(x.abs().max().item())
+        else:
+            scale = torch.tensor(2.0, dtype=x.dtype, device=x.device)
+        return x * scale + y
+
+    def pure(x, y):
+        return x * y, (x + y).sum(-1)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    y = torch.randn((256, 64), generator=gen, device="cuda")
+    xs = [torch.randn((256, 64), generator=gen, device="cuda")
+          for _ in range(4)]
+    cache = GraphCache()
+    before = _graph_counts()
+    outs = [cache(host_bound, (x, y)) for x in xs]
+    assert tuple(_graph_counts() - before) == (0, 0, 4, 1)
+    for x, out in zip(xs, outs):
+        assert torch.equal(out, host_bound(x, y))
+    before = _graph_counts()
+    outs = [cache(pure, (x, y)) for x in xs]
+    assert tuple(_graph_counts() - before) == (1, 2, 1, 0)
+    for x, out in zip(xs, outs):
+        for a, b in zip(out, pure(x, y)):
+            assert torch.equal(a, b)
+    assert not torch.cuda.is_current_stream_capturing()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_dynamic_bounds_calls_replay_on_card():
+    """Branch-and-bound's calls with per-node bounds (a solver built per
+    call) evaluate through the graphs of the solver that serves them: the
+    second call captures nothing, and both answer as bare evaluations do."""
+    from dompc_tpu_torch.solver import _graphs
+    from dompc_tpu_torch.solver.ipm import IPMSettings, make_ipm_solver
+    _needs_card()
+
+    def build():
+        return make_ipm_solver(
+            lambda w, p: ((w - p) ** 2).sum(-1),
+            lambda w, p: w[:, :1] + w[:, 1:2] - 1.0,
+            lambda w, p: w[:, :1] ** 2 - 4.0,
+            np.full(2, -10.0), np.full(2, 10.0), 1, 1,
+            settings=IPMSettings(tol=1e-8), dynamic_bounds=True,
+            dtype=torch.float64, device="cuda")
+
+    def T(a):
+        return torch.tensor(a, dtype=torch.float64, device="cuda")
+    w0, p = T(np.zeros((3, 2))), T([[0.0, 0.0], [1.0, 2.0], [3.0, -1.0]])
+    bounds = [(T(np.full((3, 2), -10.0 + k)), T(np.full((3, 2), 10.0 - j)))
+              for k, j in ((0.0, 0.0), (9.5, 8.5), (0.0, 9.0))]
+    solve, deltas, got = build(), [], []
+    for lb, ub in bounds:
+        before = _graph_counts()
+        got.append(solve(w0, p, lb_dyn=lb, ub_dyn=ub))
+        deltas.append(_graph_counts() - before)
+    assert deltas[0][0] > 3 and deltas[1][0] == deltas[2][0] == 0
+    assert all(d[3] == 0 for d in deltas) and deltas[2][1] > 10
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(_graphs.GraphCache, "_eligible", lambda self, args: False)
+        bare = build()
+        want = [bare(w0, p, lb_dyn=lb, ub_dyn=ub) for lb, ub in bounds]
+    for a, b in zip(got, want):
+        assert bool(a.success.all()) and torch.equal(a.iterations,
+                                                     b.iterations)
+        assert float((a.w - b.w).abs().max()) <= 1e-12
