@@ -189,7 +189,9 @@ Every kernel counter is set to 0 just before each path and read just
 after.  Each path of the main process and each subprocess prints the
 counters of the IPM's point-evaluation graphs over it (a line
 ``oracle_graph {"path": ..., "captures", "replays", "eager",
-"failures"}``, tools/_profiler.py:oracle_graph); branch-and-bound's
+"failures"}``, tools/_profiler.py:oracle_graph), and each float64 path
+the BBD solve's refinement passes over it (``bbd_refine {"path": ...,
+"refine_passes"}``, solver/bbd.py:bbd_solve); branch-and-bound's
 records give the captures of every frontier expansion, and phase 13's
 float64 subprocess its peak of allocated device memory.  Phases 2-7 run one after another in the main process (with 17
 after 3, 16a-b, 14's float32 flagship and 13's float32 MINLP); then the
@@ -2158,15 +2160,23 @@ def minlp_brute_force(x0):
 def graph_counts(path):
     """Print the counters of the IPM's point-evaluation graphs
     (``tools/_profiler.py:oracle_graph``) over one path: keys captured,
-    evaluations replayed, evaluations run eagerly, failed captures."""
+    evaluations replayed, evaluations run eagerly, failed captures; on a
+    float64 path also the BBD solve's refinement passes
+    (``solver/bbd.py:bbd_solve.refine_passes``)."""
+    from dompc_tpu_torch.solver.bbd import bbd_solve
     from dompc_tpu_torch.tools import _profiler as profiler
     before = dict(vars(profiler.oracle_graph))
+    refine0 = bbd_solve.refine_passes
     try:
         yield
     finally:
         print("oracle_graph " + json.dumps(dict(path=path, **{
             k: v - before[k] for k, v in vars(profiler.oracle_graph).items()
         })), flush=True)
+        if os.environ.get("DOMPC_TPU_X64") == "1":
+            print("bbd_refine " + json.dumps(dict(
+                path=path, refine_passes=bbd_solve.refine_passes - refine0)),
+                flush=True)
 
 
 @contextlib.contextmanager

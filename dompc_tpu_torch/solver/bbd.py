@@ -704,7 +704,9 @@ def bbd_solve(D, U, Lo, Bord, Root, rhs_c, rhs_r, n_refine=0,
     card too (:func:`chain_sweep`), counted in ``bbd_solve.plain_routes``.
     The roots are then eliminated by batched small dense Schur-complement
     solves.  ``n_refine`` passes of iterative refinement re-run the sweep
-    on the residual.
+    on the residual, each in span ``kkt.refine`` and counted in
+    ``bbd_solve.refine_passes`` (the KKT backends pass none in float32;
+    a float32 SPIKE partition raises it, :func:`_spike_parts`).
     """
     if D.ndim == 4:
         x_c, x_r = bbd_solve(*(a[None] for a in (D, U, Lo, Bord, Root,
@@ -742,14 +744,18 @@ def bbd_solve(D, U, Lo, Bord, Root, rhs_c, rhs_r, n_refine=0,
         x_c, x_r = one_solve(rhs_c, rhs_r)
         Db, Ub, Lb = (a.reshape((B, C) + a.shape[1:]) for a in (D, U, Lo))
         for _ in range(n_refine):
-            y_c, y_r = bbd_matvec(Db, Ub, Lb, Bord, Root, x_c, x_r)
-            e_c, e_r = one_solve(rhs_c - y_c, rhs_r - y_r)
-            x_c = x_c + e_c
-            x_r = x_r + e_r
+            _bbd_solve.refine_passes += 1
+            with profiler.span("kkt.refine"):
+                y_c, y_r = bbd_matvec(Db, Ub, Lb, Bord, Root, x_c, x_r)
+                e_c, e_r = one_solve(rhs_c - y_c, rhs_r - y_r)
+                x_c = x_c + e_c
+                x_r = x_r + e_r
     return x_c, x_r
 
 
-# solves routed past the kernels to the plain sweep (counted through the
-# alias, so a caller that rebinds the module's name still counts here)
+# solves routed past the kernels to the plain sweep, and refinement passes
+# (counted through the alias, so a caller that rebinds the module's name
+# still counts here)
 _bbd_solve = bbd_solve
 bbd_solve.plain_routes = 0
+bbd_solve.refine_passes = 0

@@ -73,6 +73,9 @@ SPANS = {
     "kkt.assemble": "KKT: band blocks, border and right-hand side packed",
     "kkt.bbd_solve": "BBD solve (solver/bbd.py): band sweep, root Schur "
                      "complement, refinement",
+    "kkt.refine": "BBD solve: one refinement pass inside kkt.bbd_solve, the "
+                  "residual's bbd_matvec and its re-solve (the KKT "
+                  "backends take none in float32)",
     "kkt.expand": "condensed KKT: unpacking and the interior "
                   "back-substitution",
     # host-device boundary: one span a blocking read of the device, named by
