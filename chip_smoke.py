@@ -189,7 +189,11 @@ Every kernel counter is set to 0 just before each path and read just
 after.  Each path of the main process and each subprocess prints the
 counters of the IPM's point-evaluation graphs over it (a line
 ``oracle_graph {"path": ..., "captures", "replays", "eager",
-"failures"}``, tools/_profiler.py:oracle_graph), and each float64 path
+"failures"}``, tools/_profiler.py:oracle_graph), those of the derivative
+oracles' graphs (a line ``prepare_graph``, the same keys; the
+polymerization of phase 14 also on a path of its own, ``zoo_poly_f64``),
+its peaks of allocated and reserved device memory (``peak {"path": ...,
+"allocated_bytes", "reserved_bytes"}``), and each float64 path
 the BBD solve's refinement passes over it (``bbd_refine {"path": ...,
 "refine_passes"}``, solver/bbd.py:bbd_solve); branch-and-bound's
 records give the captures of every frontier expansion, and phase 13's
@@ -2156,23 +2160,54 @@ def minlp_brute_force(x0):
                itertools.product(range(MINLP_UMAX + 1), repeat=MINLP_N))
 
 
+_open_peaks = []     # [allocated, reserved] peaks of the open graph_counts
+
+
+def _fold_peaks():
+    """Fold the allocator's peaks since its last reset into those of every
+    open :func:`graph_counts` path, then reset them, so that nested paths
+    each read their own."""
+    import torch
+    if not torch.cuda.is_initialized():
+        return
+    now = (torch.cuda.max_memory_allocated(),
+           torch.cuda.max_memory_reserved())
+    for peak in _open_peaks:
+        peak[:] = [max(a, b) for a, b in zip(peak, now)]
+    torch.cuda.reset_peak_memory_stats()
+
+
 @contextlib.contextmanager
 def graph_counts(path):
     """Print the counters of the IPM's point-evaluation graphs
-    (``tools/_profiler.py:oracle_graph``) over one path: keys captured,
-    evaluations replayed, evaluations run eagerly, failed captures; on a
-    float64 path also the BBD solve's refinement passes
-    (``solver/bbd.py:bbd_solve.refine_passes``)."""
+    (``tools/_profiler.py:oracle_graph``) and of the derivative oracles'
+    graphs (``prepare_graph``) over one path: keys captured, evaluations
+    replayed, evaluations run eagerly, failed captures; the path's peak of
+    allocated and of reserved device memory; on a float64 path also the
+    BBD solve's refinement passes (``solver/bbd.py:
+    bbd_solve.refine_passes``)."""
     from dompc_tpu_torch.solver.bbd import bbd_solve
     from dompc_tpu_torch.tools import _profiler as profiler
-    before = dict(vars(profiler.oracle_graph))
+    groups = ("oracle_graph", "prepare_graph")
+    before = {g: dict(vars(getattr(profiler, g))) for g in groups}
     refine0 = bbd_solve.refine_passes
+    _fold_peaks()
+    peak = [0, 0]
+    _open_peaks.append(peak)
     try:
         yield
     finally:
-        print("oracle_graph " + json.dumps(dict(path=path, **{
-            k: v - before[k] for k, v in vars(profiler.oracle_graph).items()
-        })), flush=True)
+        _fold_peaks()
+        _open_peaks.remove(peak)
+        for g in groups:
+            print(g + " " + json.dumps(dict(path=path, **{
+                k: v - before[g][k]
+                for k, v in vars(getattr(profiler, g)).items()})),
+                flush=True)
+        if peak[1]:
+            print("peak " + json.dumps(dict(
+                path=path, allocated_bytes=peak[0], reserved_bytes=peak[1])),
+                flush=True)
         if os.environ.get("DOMPC_TPU_X64") == "1":
             print("bbd_refine " + json.dumps(dict(
                 path=path, refine_passes=bbd_solve.refine_passes - refine0)),
@@ -2548,7 +2583,8 @@ def zoo_f64():
         elif np.abs(run["u0"]).max() > 5 + 1e-9:
             faults.append(f"inputs {run['u0']} outside [-5, 5]")
         check(not faults, f"{name}: " + "; ".join(faults))
-    poly = poly_steps(2)
+    with graph_counts("zoo_poly_f64"):
+        poly = poly_steps(2)
     print("zoo_poly " + json.dumps(poly), flush=True)
     check(poly["device"].startswith("cuda") and poly["launches"] > 0
           and poly["tiled_launches"] == 0,

@@ -36,6 +36,7 @@ from ..tools import NumStruct
 from ..tools import _profiler as profiler
 from ..tools._optxview import make_mpc_resolver
 from ..data import MPCData
+from ..solver._graphs import GraphCache
 from ..solver.ipm import make_ipm_solver, ipm_settings_from
 from ..solver.minlp import BranchAndBound
 from ..solver.bbd import (BBDAssembler, CondensedAssembler, bbd_kkt_solve,
@@ -854,39 +855,52 @@ class MPC(Optimizer, IteratedVariables):
         return (var_chain, var_stage, g_chain, g_stage, h_chain, h_stage,
                 init_cols)
 
-    def _prepare_fn(self):
+    def _prepare_fn(self, graphs=None):
         """``prepare(w, pvec, lam_g, lam_h, sig_w, inv_sig_s)`` of both
         structured backends: instance derivatives at the current points of
         a batch, ``Hi`` (B, I, d, d), ``Jg_i`` (B, I, E, d), ``Jh_i`` (B,
         I, nlr, d), from three independent vmapped transforms over the B*I
         instances (the JAX package's default, unfused form), in spans
-        ``oracle.gather``, ``oracle.hessian`` and ``oracle.jacobian``."""
+        ``oracle.gather``, ``oracle.hessian`` and ``oracle.jacobian``.
+        Each of the three is evaluated through ``graphs`` (the solver's
+        ``GraphCache``, else one of its own), so on CUDA it replays as a
+        captured graph from a shape's second Newton step on."""
         sp = self._struct_parts
         gather, nlr, I, d = sp["gather"], sp["nlr"], sp["I"], sp["d"]
         d_g, d_h, d2_lag = sp["d_g"], sp["d_h"], sp["d2_lag"]
         vmap = torch.func.vmap
+        graphs = GraphCache() if graphs is None else graphs
+
+        def hessians(V, tvp, tvpN, p, om, tm, lam_g, lam_h):
+            return vmap(d2_lag)(V, tvp, tvpN, p, om, tm,
+                                *sp["inst_multipliers"](lam_g, lam_h))
+
+        def jacobians(V, tvp, p):
+            return (vmap(d_g)(V, tvp, p),
+                    vmap(d_h)(V, tvp, p) if nlr
+                    else V.new_zeros((V.shape[0], 0, d)))
 
         def prepare(w, pvec, lam_g, lam_h, sig_w, inv_sig_s):
             B = w.shape[0]
             with profiler.span("oracle.gather"):
-                V, tvp, tvpN, p, om, tm = gather(w, pvec)
+                V, tvp, tvpN, p, om, tm = graphs(gather, (w, pvec),
+                                                 "prepare")
             with profiler.span("oracle.hessian"):
-                Hi = vmap(d2_lag)(V, tvp, tvpN, p, om, tm,
-                                  *sp["inst_multipliers"](lam_g, lam_h))
+                Hi = graphs(hessians, (V, tvp, tvpN, p, om, tm, lam_g,
+                                       lam_h), "prepare")
             with profiler.span("oracle.jacobian"):
-                Jg_i = vmap(d_g)(V, tvp, p)
-                Jh_i = vmap(d_h)(V, tvp, p) if nlr \
-                    else V.new_zeros((B * I, 0, d))
+                Jg_i, Jh_i = graphs(jacobians, (V, tvp, p), "prepare")
             return tuple(x.reshape((B, I) + x.shape[1:])
                          for x in (Hi, Jg_i, Jh_i)) + (sig_w, inv_sig_s)
         return prepare
 
-    def _make_structured_solve(self, delta_cons, n_refine=1):
+    def _make_structured_solve(self, delta_cons, n_refine=1, graphs=None):
         """Uncondensed structured KKT backend: instance derivative tensors
         are gathered into per-scenario-chain band blocks plus a root border
         and solved by the band sweep with a Schur complement on the root
         (solver/bbd.py).  Works on (B, ...) batches; the band backend is
-        chosen here, once (``DOMPC_TPU_BAND_BACKEND``)."""
+        chosen here, once (``DOMPC_TPU_BAND_BACKEND``); the derivatives
+        evaluate through ``graphs`` (:meth:`_prepare_fn`)."""
         sp = self._struct_parts
         chains = self._chain_assignment()
         assembler = BBDAssembler(
@@ -894,7 +908,7 @@ class MPC(Optimizer, IteratedVariables):
             self.n_opt_lagr, self._n_ineq, chains[6], device=self._device)
         self._kkt_structure = assembler
         m = self.n_opt_lagr
-        prepare_derivs = self._prepare_fn()
+        prepare_derivs = self._prepare_fn(graphs)
 
         def prepare(w, pvec, lam_g, lam_h, sig_w, inv_sig_s):
             Hi, Jg_i, Jh_i, _, _ = prepare_derivs(w, pvec, lam_g, lam_h,
@@ -969,7 +983,7 @@ class MPC(Optimizer, IteratedVariables):
         return dict(int_cols=int_cols, bnd_cols=bnd_cols,
                     int_rows=int_rows, bnd_rows=bnd_rows, A_int=A_int)
 
-    def _make_condensed_solve(self, delta_cons, n_refine=1):
+    def _make_condensed_solve(self, delta_cons, n_refine=1, graphs=None):
         """Condensed structured KKT backend: per-instance collocation
         interiors are Schur-eliminated by batched dense solves, then the
         small boundary band (block size O(n_x + n_u)) is swept by the BBD
@@ -1009,7 +1023,7 @@ class MPC(Optimizer, IteratedVariables):
         R_g_int_t = _idx(R_g_int, dev)
         R_g_int_flat = R_g_int_t.reshape(-1)
         R_h_flat = _idx(R_h.reshape(-1), dev) if nlr else None
-        prepare = self._prepare_fn()
+        prepare = self._prepare_fn(graphs)
 
         backend = band_backend(self._dtype, dev)
 
@@ -1097,14 +1111,19 @@ class MPC(Optimizer, IteratedVariables):
 
         return prepare, solve
 
-    def _make_kkt_backend(self, delta_cons, n_refine=1, allow_condensed=True):
+    def _make_kkt_backend(self, delta_cons, n_refine=1, allow_condensed=True,
+                          graphs=None):
         """Pick the structured KKT backend: condensed band when the
-        transcription allows it, plain BBD band otherwise."""
+        transcription allows it, plain BBD band otherwise.  Pass the
+        solver's ``GraphCache`` as ``graphs``, so that the derivative
+        oracles' graphs share its pool."""
         st = self.settings
         if (allow_condensed and st.kkt_solver in ("auto", "condensed")
                 and self._condensation_plan() is not None):
-            return self._make_condensed_solve(delta_cons, n_refine=n_refine)
-        return self._make_structured_solve(delta_cons, n_refine=n_refine)
+            return self._make_condensed_solve(delta_cons, n_refine=n_refine,
+                                              graphs=graphs)
+        return self._make_structured_solve(delta_cons, n_refine=n_refine,
+                                           graphs=graphs)
 
     def _create_solver(self):
         st = self.settings
@@ -1114,9 +1133,10 @@ class MPC(Optimizer, IteratedVariables):
                           or (st.kkt_solver == "auto"
                               and self.n_opt_x > 600 and n_stages >= 4))
         structured_solve = None
+        graphs = GraphCache()
         if use_structured:
             structured_solve = self._make_kkt_backend(
-                ipm_settings.delta_cons)
+                ipm_settings.delta_cons, graphs=graphs)
         self._solve_raw = make_ipm_solver(
             self._f_fn, self._g_fn, self._h_fn,
             self._lb_opt_x, self._ub_opt_x,
@@ -1125,7 +1145,7 @@ class MPC(Optimizer, IteratedVariables):
             grad_f_fn=self._grad_f_fn,
             jac_g_fn=self._jac_g_fn if self.n_instances else None,
             jac_h_fn=self._jac_h_fn if self._n_ineq else None,
-            structured_solve=structured_solve,
+            structured_solve=structured_solve, graphs=graphs,
             dtype=self._dtype, device=self._device)
         self._optx_resolver = make_mpc_resolver(self)
         self._bnb = None    # branch-and-bound over this solver's oracles

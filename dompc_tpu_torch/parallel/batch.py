@@ -21,6 +21,7 @@ import torch
 import torch.distributed as dist
 
 from .._config import resolve_device
+from ..solver._graphs import GraphCache
 from ..solver.ipm import IPMSettings, IPMSolution, make_ipm_solver
 from ..tools import _profiler as profiler
 
@@ -98,16 +99,18 @@ def make_batch_solver(mpc, tol=1e-6, max_iter=60, use_structured=True,
                                    **ipm_overrides)
         n_refine = 3
     structured = None
+    graphs = GraphCache()
     if use_structured and hasattr(mpc, "_struct_parts"):
         structured = mpc._make_kkt_backend(ipm_settings.delta_cons,
-                                           n_refine=n_refine)
+                                           n_refine=n_refine, graphs=graphs)
     solve = make_ipm_solver(
         mpc._f_fn, mpc._g_fn, mpc._h_fn,
         mpc._lb_opt_x, mpc._ub_opt_x,
         mpc.n_opt_lagr, mpc._n_ineq, settings=ipm_settings,
         hess_fn=mpc._hess_fn, grad_f_fn=mpc._grad_f_fn,
         jac_g_fn=mpc._jac_g_fn, jac_h_fn=mpc._jac_h_fn,
-        structured_solve=structured, dtype=mpc._dtype, device=mpc._device)
+        structured_solve=structured, graphs=graphs, dtype=mpc._dtype,
+        device=mpc._device)
 
     def T(x):
         """numpy, a scalar or a tensor -> the MPC's dtype and device."""

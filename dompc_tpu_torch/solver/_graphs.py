@@ -1,12 +1,15 @@
-"""Captured CUDA graphs of the IPM's point evaluations.
+"""Captured CUDA graphs of the IPM's point evaluations and of the
+structured KKT backends' derivative oracles.
 
 A point evaluation (f, g, h, grad f, the Jacobian or Hessian products at
 one point) dispatches the same few hundred small kernels at every call
 whose arguments have the same shapes: the batch is always full, and
-finished elements are frozen by ``torch.where``, not dropped.
-:class:`GraphCache` captures such an evaluation once as a
-``torch.cuda.CUDAGraph`` and replays it from then on, so the host launches
-one graph where it dispatched every operator.
+finished elements are frozen by ``torch.where``, not dropped.  So do the
+derivative oracles of ``kkt.prepare`` (the instance gather, Hessians and
+Jacobians, ``controller/_mpc.py:_prepare_fn``), once a Newton step, in
+thousands of kernels.  :class:`GraphCache` captures such an evaluation
+once as a ``torch.cuda.CUDAGraph`` and replays it from then on, so the
+host launches one graph where it dispatched every operator.
 
 The policy reads only what a call can observe:
 
@@ -27,8 +30,11 @@ on one stream, and every output is cloned before the next replay, so no
 graph reads what another wrote.  A capture that fails (an operation not
 allowed while a stream captures, such as a host read) is ended, its pool
 is left to what it already holds, and later captures take a new one.
-Counters: ``tools/_profiler.py:oracle_graph``; a replay runs in span
-``oracle.replay``.
+Each kind of evaluation counts apart and replays in a span of its own
+(:data:`KINDS`): the point evaluations in ``tools/_profiler.py:
+oracle_graph`` and span ``oracle.replay``, the derivative oracles in
+``prepare_graph`` and span ``kkt.replay``.  A solver and its structured
+backend evaluate through one cache, so both kinds share its pool.
 
 ``functions`` names the evaluations a cache serves: a solver that shares
 its cache (the IPM's dynamic-bounds calls build one solver a call) takes
@@ -44,6 +50,10 @@ from ..tools import _profiler as profiler
 
 _ONCE = object()     # seen once, eagerly: capture at the next sight
 _EAGER = object()    # its capture failed: eager for good
+
+# kind of evaluation -> (its counters, the span a replay runs in)
+KINDS = {"point": (profiler.oracle_graph, "oracle.replay"),
+         "prepare": (profiler.prepare_graph, "kkt.replay")}
 
 
 class _Graph:
@@ -69,9 +79,10 @@ class _Graph:
 
 
 class GraphCache:
-    """Replays the evaluations ``cache(fn, args)`` of ``fn(*args)`` as
-    captured graphs, by the policy of the module, for arguments on
-    ``device_type``.
+    """Replays the evaluations ``cache(fn, args, kind)`` of ``fn(*args)``
+    as captured graphs, by the policy of the module, for arguments on
+    ``device_type``; ``kind`` (of :data:`KINDS`) names the counters and
+    the replay span.
 
     ``capture(fn, static_args) -> (replay, static_outputs)`` replaces the
     CUDA graph capture (tests drive the policy on the CPU through it)."""
@@ -122,8 +133,8 @@ class GraphCache:
                 torch.cuda.current_stream().wait_stream(self._stream)
         return graph.replay, out
 
-    def __call__(self, fn, args):
-        counts = profiler.oracle_graph
+    def __call__(self, fn, args, kind="point"):
+        counts, replay_span = KINDS[kind]
         if not self._eligible(args):
             counts.eager += 1
             return fn(*args)
@@ -131,7 +142,7 @@ class GraphCache:
         entry = self._keys.get(key)
         if isinstance(entry, _Graph):
             counts.replays += 1
-            with profiler.span("oracle.replay"):
+            with profiler.span(replay_span):
                 return entry.run(args)
         if entry is _ONCE:
             inputs = [a.clone(memory_format=torch.contiguous_format)

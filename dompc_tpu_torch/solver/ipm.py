@@ -255,7 +255,7 @@ def make_ipm_solver(
     dtype: Optional[torch.dtype] = None,
     device: Optional[torch.device] = None,
     _bound_masks=None,
-    _graphs=None,
+    graphs=None,
 ):
     """Build ``solve(w0, p, lam0=None, mu0=None, zl0=None, zu0=None,
     lb_dyn=None, ub_dyn=None) -> IPMSolution``.
@@ -283,8 +283,9 @@ def make_ipm_solver(
     asked for.
 
     ``solve.graphs`` is the ``GraphCache`` of its point evaluations
-    (``solver/_graphs.py``; ``solve.graphs.functions`` names them), which
-    lives and dies with the solver.
+    (``solver/_graphs.py``; ``solve.graphs.functions`` names them): the
+    ``graphs`` given, which the structured backend's derivative oracles
+    may evaluate through too, or else one of its own.
 
     ``dynamic_bounds=True`` lets a call pass per-element bound values
     ``lb_dyn``/``ub_dyn`` (B, n), as branch-and-bound's node batches do;
@@ -382,7 +383,7 @@ def make_ipm_solver(
 
     # the dynamic-bounds call's solver evaluates its maker's functions
     # (none reads the bounds), so their graphs serve every such call
-    graphs = GraphCache() if _graphs is None else _graphs
+    graphs = GraphCache() if graphs is None else graphs
 
     def at_point(name, fn):
         """``fn`` as one IPM-level evaluation of the problem functions (span
@@ -1476,7 +1477,7 @@ def make_ipm_solver(
             hess_fn=hess_fn, grad_f_fn=grad_f_fn, jac_g_fn=jac_g_fn,
             jac_h_fn=jac_h_fn, structured_solve=structured_solve,
             dtype=dtype, device=device, _bound_masks=(has_lb, has_ub),
-            _graphs=graphs)
+            graphs=graphs)
         out = inner(w0, p, lam0, mu0, zl0, zu0)
         solve.newton_steps += inner.newton_steps
         return out

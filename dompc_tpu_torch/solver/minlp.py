@@ -20,6 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ._graphs import GraphCache
 from .ipm import make_ipm_solver, IPMSettings
 
 
@@ -72,15 +73,17 @@ class BranchAndBound:
         settings = IPMSettings(tol=tol, max_iter=max_iter, reg_retries=2,
                                use_soc=False, do_polish=False)
         structured = None
+        graphs = GraphCache()
         if hasattr(opt, "_make_structured_solve") \
                 and hasattr(opt, "_struct_parts"):
-            structured = opt._make_structured_solve(settings.delta_cons)
+            structured = opt._make_structured_solve(settings.delta_cons,
+                                                    graphs=graphs)
         self._solve = make_ipm_solver(
             opt._f_fn, opt._g_fn, opt._h_fn, lb, ub,
             opt.n_opt_lagr, opt._n_ineq, settings=settings,
             hess_fn=opt._hess_fn, grad_f_fn=opt._grad_f_fn,
             jac_g_fn=opt._jac_g_fn, jac_h_fn=opt._jac_h_fn,
-            structured_solve=structured, dynamic_bounds=True,
+            structured_solve=structured, dynamic_bounds=True, graphs=graphs,
             dtype=self._dtype, device=self._device)
 
     def _tensor(self, a):

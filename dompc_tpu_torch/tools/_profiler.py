@@ -14,7 +14,8 @@ shared no-op context otherwise, so they stay on the hot path.  Every
 blocking read of the device on the solve path opens a ``sync.<site>``
 span through :func:`host_sync` (and :func:`any_true`,
 :func:`to_device`), which also counts it in ``host_sync.count``; the
-point evaluations' CUDA graphs count in :data:`oracle_graph`.  One
+point evaluations' CUDA graphs count in :data:`oracle_graph`, the
+derivative oracles' in :data:`prepare_graph`.  One
 trace runs at a time in a process, as with ``jax.profiler``.
 """
 import contextlib
@@ -66,6 +67,10 @@ SPANS = {
     "oracle.hessian": "derivative oracles: vmap(d2_lag) with the instance "
                       "multipliers",
     "oracle.jacobian": "derivative oracles: vmap(d_g) and vmap(d_h)",
+    "kkt.replay": "inside oracle.gather, oracle.hessian or oracle.jacobian: "
+                  "the derivative oracle replayed as a captured CUDA graph "
+                  "(solver/_graphs.py): arguments copied in, the replay, "
+                  "outputs cloned",
     "kkt.prepare": "KKT: derivatives and assembly, once a Newton step",
     "kkt.solve": "KKT: one right-hand side solved",
     "kkt.condense": "condensed KKT (controller/_mpc.py): the per-instance "
@@ -131,6 +136,11 @@ host_sync.count = 0
 # sight, autograd or torch.func, a failed capture) and failed captures.
 oracle_graph = types.SimpleNamespace(captures=0, replays=0, eager=0,
                                      failures=0)
+# The same for the derivative oracles of kkt.prepare (controller/_mpc.py:
+# the instance gather, Hessians and Jacobians), which the structured KKT
+# backends evaluate through the solver's cache.
+prepare_graph = types.SimpleNamespace(captures=0, replays=0, eager=0,
+                                      failures=0)
 
 
 def any_true(site, pred):

@@ -749,9 +749,9 @@ def test_kkt_child_spans_cover_their_parents_on_card(warm_call_on_card):
 
 # -- the point evaluations' CUDA graphs (solver/_graphs.py) ------------------
 
-def _graph_counts():
+def _graph_counts(group="oracle_graph"):
     from dompc_tpu_torch.tools import profiler
-    c = profiler.oracle_graph
+    c = getattr(profiler, group)
     return np.array([c.captures, c.replays, c.eager, c.failures])
 
 
@@ -839,12 +839,14 @@ def test_solves_with_graphs_equal_bare_on_card(cstr_f32_on_card,
     def run():
         solve = _solver(mpc)
         before = _graph_counts()
+        before_prep = _graph_counts("prepare_graph")
         cold, _ = solve(x0s, initial_guess_from_x0(mpc, x0s))
         steps_cold = solve.ipm.newton_steps
         warm, _ = solve(x0s * 1.001, cold.w, cold.lam, 1e-4, cold.zl,
                         cold.zu)
         return (cold, warm, steps_cold, solve.ipm.newton_steps - steps_cold,
-                _graph_counts() - before, solve.ipm.graphs)
+                _graph_counts() - before, solve.ipm.graphs,
+                _graph_counts("prepare_graph") - before_prep)
 
     shipped = run()
     monkeypatch.setattr(_graphs.GraphCache, "_eligible",
@@ -856,11 +858,65 @@ def test_solves_with_graphs_equal_bare_on_card(cstr_f32_on_card,
         assert torch.equal(a.iterations, b.iterations)
         assert float((a.kkt_err - b.kkt_err).abs().max()) <= 1e-6
     captures, replays, eager, failures = shipped[4]
+    prep = shipped[6]      # the gather, Hessian and Jacobian keys
     states = list(shipped[5]._keys.values())
     graphs = [s for s in states if isinstance(s, _graphs._Graph)]
-    assert failures == 0 and len(graphs) == len(states) == captures >= 3
+    assert failures == 0 and captures >= 3
+    assert len(graphs) == len(states) == captures + prep[0]
     assert replays > 10 * captures
+    assert tuple(prep) == (3, 3 * (shipped[2] + shipped[3] - 2), 3, 0)
     assert tuple(bare[4][:2]) == (0, 0) and bare[4][3] == 0
+    assert tuple(bare[6][:2]) == (0, 0) and bare[6][3] == 0
+
+
+def _prepare_replays_equal_eager(mpc, sol, pvec, rel):
+    """prepare's instance derivatives ``Hi``, ``Jg_i``, ``Jh_i`` at four
+    points near ``sol``: eager at the first, captured at the second,
+    replayed at the last two, each within ``rel`` (relative to the
+    tensor's largest entry) of the bare evaluation; the solver's own
+    point-evaluation counters do not move."""
+    from dompc_tpu_torch.solver._graphs import GraphCache
+    bare_cache = GraphCache()
+    bare_cache._eligible = lambda args: False
+    prepare, _ = mpc._make_kkt_backend(1e-8, graphs=GraphCache())
+    bare, _ = mpc._make_kkt_backend(1e-8, graphs=bare_cache)
+    m = mpc.n_opt_lagr
+    sig = torch.ones_like(sol.w)
+    inv_sig_s = torch.ones((sol.w.shape[0], mpc._n_ineq),
+                           dtype=sol.w.dtype, device=sol.w.device)
+    points = [(sol.w * (1 + 1e-3 * k), sol.lam * (1 + 1e-2 * k))
+              for k in range(4)]
+    args = [(w, pvec, lam[:, :m], lam[:, m:], sig, inv_sig_s)
+            for w, lam in points]
+    wants = [bare(*a) for a in args]
+    before = _graph_counts("prepare_graph")
+    before_point = _graph_counts()
+    gots = [prepare(*a) for a in args]
+    counts = _graph_counts("prepare_graph") - before
+    worst = 0.0
+    for got, want in zip(gots, wants):
+        for a, b in zip(got[:3], want[:3]):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            if b.numel():
+                err = float((a - b).abs().max()) \
+                    / max(float(b.abs().max()), 1e-300)
+                worst = max(worst, err)
+    assert worst <= rel, worst
+    assert tuple(counts) == (3, 6, 3, 0)
+    assert not (_graph_counts() - before_point).any()
+    return worst
+
+
+@pytest.mark.cuda
+def test_prepare_oracles_replay_equal_eager_on_card(cstr_f32_on_card):
+    """The robust CSTR in float32 at B = 256: the replayed instance
+    Hessians and Jacobians equal the eager ones to 1e-6 relative."""
+    from dompc_tpu_torch.parallel import initial_guess_from_x0
+    mpc, x0s, pvec = cstr_f32_on_card
+    sol, _ = _solver(mpc)(x0s, initial_guess_from_x0(mpc, x0s))
+    assert bool(sol.success.all())
+    print(f"cstr f32 prepare replay vs eager: "
+          f"{_prepare_replays_equal_eager(mpc, sol, pvec, 1e-6):.3e}")
 
 
 @pytest.mark.cuda
@@ -975,7 +1031,7 @@ def test_poly_f64_batch_certifies_and_refines_on_card(monkeypatch):
     throughput mode) certifies every instance with finite u0 inside the
     input bounds; each Newton step's KKT solves take one refinement pass,
     and the ``kkt.refine`` spans equal ``bbd_solve.refine_passes``; no
-    point evaluation fails to capture."""
+    point evaluation or derivative oracle fails to capture."""
     from dompc_tpu_torch.parallel import (initial_guess_from_x0,
                                           make_batch_solver)
     from dompc_tpu_torch.solver.bbd import bbd_solve
@@ -986,6 +1042,7 @@ def test_poly_f64_batch_certifies_and_refines_on_card(monkeypatch):
                               throughput_mode=True)
     x0s = _poly_states(8)
     before, passes0 = _graph_counts(), bbd_solve.refine_passes
+    before_prep = _graph_counts("prepare_graph")
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         sol, u0 = solve(x0s, initial_guess_from_x0(mpc, x0s))
@@ -1004,6 +1061,7 @@ def test_poly_f64_batch_certifies_and_refines_on_card(monkeypatch):
     assert names.count("kkt.refine") == passes
     assert names.count("kkt.refine") == names.count("kkt.bbd_solve")
     assert (_graph_counts() - before)[3] == 0
+    assert (_graph_counts("prepare_graph") - before_prep)[3] == 0
 
 
 @pytest.mark.cuda
@@ -1033,3 +1091,25 @@ def test_poly_f64_three_steps_match_cpu_on_card(monkeypatch):
     gap = float(((w_gpu - w_cpu).abs() / (1 + w_cpu.abs())).max())
     print(f"poly f64 3 steps: card vs CPU {gap:.3e}")
     assert gap <= 1e-9, gap
+
+
+@pytest.mark.cuda
+def test_poly_f64_prepare_oracles_replay_equal_eager_on_card(monkeypatch):
+    """The polymerization in float64 at B = 8, at the iterate of three
+    Newton steps: the replayed instance Hessians and Jacobians equal the
+    eager ones to 1e-12 relative."""
+    from dompc_tpu_torch.parallel import (initial_guess_from_x0,
+                                          make_batch_solver)
+    _needs_card()
+    mpc = _poly_mpc(monkeypatch)
+    x0s = _poly_states(8, seed=2)
+    sol, _ = make_batch_solver(mpc, tol=1e-3, max_iter=3,
+                               throughput_mode=True)(
+        x0s, initial_guess_from_x0(mpc, x0s))
+    pvec = torch.as_tensor(mpc._assemble_opt_p(np.zeros(mpc.model.n_x)),
+                           dtype=mpc._dtype, device=mpc._device)
+    pvec = pvec.expand(len(x0s), -1).clone()
+    pvec[:, mpc._p_sl["x0"]] = torch.as_tensor(x0s, dtype=mpc._dtype,
+                                               device=mpc._device)
+    print(f"poly f64 prepare replay vs eager: "
+          f"{_prepare_replays_equal_eager(mpc, sol, pvec, 1e-12):.3e}")

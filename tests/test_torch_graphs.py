@@ -5,24 +5,30 @@ second sight, replays from its third, falls back to eager for good when
 its capture fails, never hands out a tensor that a later replay
 overwrites, and stays eager while autograd records or ``torch.func``
 transforms; a solver's dynamic-bounds calls share its cache and its
-graphs.  The replays on the card: ``tests/test_torch_cuda.py``."""
+graphs.  The derivative oracles of ``kkt.prepare`` go through the same
+policy, count in ``prepare_graph`` and replay in span ``kkt.replay``.  The
+replays on the card: ``tests/test_torch_cuda.py``."""
+import contextlib
+
 import numpy as np
+import pytest
 import torch
 from torch.utils import _pytree as pytree
 
+from dompc_tpu_torch.parallel import batch as batch_mod
 from dompc_tpu_torch.solver import ipm as ipm_mod
 from dompc_tpu_torch.solver._graphs import GraphCache
 from dompc_tpu_torch.tools import _profiler as profiler
 
 
-def _counts():
-    c = profiler.oracle_graph
+def _counts(group="oracle_graph"):
+    c = getattr(profiler, group)
     return dict(captures=c.captures, replays=c.replays, eager=c.eager,
                 failures=c.failures)
 
 
-def _delta(before):
-    return {k: v - before[k] for k, v in _counts().items()}
+def _delta(before, group="oracle_graph"):
+    return {k: v - before[k] for k, v in _counts(group).items()}
 
 
 def _fake_capture(log, fail=False):
@@ -181,3 +187,119 @@ def test_dynamic_bounds_calls_share_the_solvers_graphs(monkeypatch):
         torch.testing.assert_close(a.w, b.w, rtol=0, atol=0)
     # the second bounds move the solution: the calls did not share answers
     assert float((got[0].w - got[1].w).abs().max()) > 1e-3
+
+
+# -- the derivative oracles of kkt.prepare (controller/_mpc.py) --------------
+
+@pytest.fixture(scope="module")
+def cstr_cpu():
+    """The robust CSTR at N = 4 in float64 on the CPU, B = 2 states, and a
+    cold call's answers by a batched solver whose evaluations are bare."""
+    from dompc_tpu_torch.parallel import initial_guess_from_x0
+    from dompc_tpu_torch.systems import bench_states, cstr_robust_mpc
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("DOMPC_TPU_PLATFORM", "cpu")
+        mp.setenv("DOMPC_TPU_X64", "1")
+        mpc = cstr_robust_mpc(n_horizon=4, n_robust=1)
+        x0s = bench_states(2)
+        w0 = initial_guess_from_x0(mpc, x0s)
+        bare = batch_mod.make_batch_solver(mpc, tol=1e-3, max_iter=60,
+                                           throughput_mode=True)
+        yield mpc, x0s, w0, bare(x0s, w0)[0]
+    torch.set_num_threads(threads)
+
+
+def _span_log(monkeypatch):
+    """Record every span opened as (name, the span it opens inside)."""
+    log, stack = [], []
+
+    @contextlib.contextmanager
+    def span(name):
+        log.append((name, stack[-1] if stack else None))
+        stack.append(name)
+        try:
+            yield
+        finally:
+            stack.pop()
+    monkeypatch.setattr(profiler, "span", span)
+    return log
+
+
+def test_prepare_oracles_capture_on_second_sight_and_replay_after(
+        cstr_cpu, monkeypatch):
+    """The gather, Hessians and Jacobians of prepare are three keys: eager
+    at the first prepare, captured at the second, replayed after, each in
+    its own ``oracle.*`` span with ``kkt.replay`` inside, equal to the bare
+    prepare's; they count in ``prepare_graph`` and not in
+    ``oracle_graph``."""
+    mpc, _, _, sol = cstr_cpu
+    m = mpc.n_opt_lagr
+    prepare, _ = mpc._make_kkt_backend(1e-8, graphs=GraphCache(
+        capture=_fake_capture([]), device_type="cpu"))
+    bare, _ = mpc._make_kkt_backend(1e-8)
+    pvec = torch.as_tensor(mpc._assemble_opt_p(np.zeros(mpc.model.n_x)),
+                           dtype=mpc._dtype).expand(2, -1).clone()
+    sig = torch.ones_like(sol.w)
+    points = [(sol.w * (1 + 1e-2 * k), sol.lam * (1 - 0.1 * k))
+              for k in range(4)]
+    log = _span_log(monkeypatch)
+    before, before_point = _counts("prepare_graph"), _counts()
+    outs, logs = [], []
+    for w, lam in points:
+        del log[:]
+        outs.append(prepare(w, pvec, lam[:, :m], lam[:, m:], sig,
+                            sig[:, :0]))
+        logs.append(list(log))
+    assert _delta(before, "prepare_graph") == dict(captures=3, replays=6,
+                                                   eager=3, failures=0)
+    assert _delta(before_point) == dict(captures=0, replays=0, eager=0,
+                                        failures=0)
+    eager = [("oracle.gather", None), ("oracle.hessian", None),
+             ("oracle.jacobian", None)]
+    replayed = [x for name, _ in eager
+                for x in ((name, None), ("kkt.replay", name))]
+    assert logs == [eager, eager, replayed, replayed]
+    for (w, lam), out in zip(points, outs):
+        want = bare(w, pvec, lam[:, :m], lam[:, m:], sig, sig[:, :0])
+        assert len(out) == len(want) == 5
+        for a, b in zip(out[:3], want[:3]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    # the points differ, so the replays did not hand back stale answers
+    assert float((outs[3][0] - outs[2][0]).abs().max()) > 1e-6
+
+
+def test_solver_and_backend_evaluate_through_one_cache(cstr_cpu,
+                                                       monkeypatch):
+    """The batched entry hands one cache to its solver and its structured
+    backend: a cold call captures the point evaluations and the three
+    prepare keys there, counts each kind apart (every ``oracle.point`` in
+    ``oracle_graph``, three evaluations a ``kkt.prepare`` in
+    ``prepare_graph``) and answers as the bare solver does."""
+    mpc, x0s, w0, want = cstr_cpu
+    made = []
+
+    def cache():
+        made.append(GraphCache(capture=_fake_capture([]), device_type="cpu"))
+        return made[-1]
+    monkeypatch.setattr(batch_mod, "GraphCache", cache)
+    solve = batch_mod.make_batch_solver(mpc, tol=1e-3, max_iter=60,
+                                        throughput_mode=True)
+    log = _span_log(monkeypatch)
+    before, before_point = _counts("prepare_graph"), _counts()
+    got, _ = solve(x0s, w0)
+    prepares = sum(1 for name, _ in log if name == "kkt.prepare")
+    points = sum(1 for name, _ in log if name == "oracle.point")
+    assert len(made) == 1 and solve.ipm.graphs is made[0]
+    assert prepares > 3
+    assert _delta(before, "prepare_graph") == dict(
+        captures=3, replays=3 * (prepares - 2), eager=3, failures=0)
+    point = _delta(before_point)
+    assert point["failures"] == 0 and point["captures"] >= 3
+    assert sum(point.values()) == points
+    assert sum(1 for name, _ in log if name == "kkt.replay") \
+        == 3 * (prepares - 2)
+    assert bool(got.success.all())
+    assert torch.equal(got.iterations, want.iterations)
+    torch.testing.assert_close(got.w, want.w, rtol=0, atol=0)
