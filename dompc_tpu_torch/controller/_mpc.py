@@ -36,8 +36,7 @@ from ..tools import NumStruct
 from ..tools import _profiler as profiler
 from ..tools._optxview import make_mpc_resolver
 from ..data import MPCData
-from ..solver._graphs import GraphCache
-from ..solver.ipm import make_ipm_solver, ipm_settings_from
+from ..solver.ipm import ipm_settings_from
 from ..solver.minlp import BranchAndBound
 from ..solver.bbd import (BBDAssembler, CondensedAssembler, bbd_kkt_solve,
                           bbd_solve, band_backend, demote_by_usage,
@@ -855,7 +854,7 @@ class MPC(Optimizer, IteratedVariables):
         return (var_chain, var_stage, g_chain, g_stage, h_chain, h_stage,
                 init_cols)
 
-    def _prepare_fn(self, graphs=None):
+    def _prepare_fn(self, graphs):
         """``prepare(w, pvec, lam_g, lam_h, sig_w, inv_sig_s)`` of both
         structured backends: instance derivatives at the current points of
         a batch, ``Hi`` (B, I, d, d), ``Jg_i`` (B, I, E, d), ``Jh_i`` (B,
@@ -863,13 +862,12 @@ class MPC(Optimizer, IteratedVariables):
         instances (the JAX package's default, unfused form), in spans
         ``oracle.gather``, ``oracle.hessian`` and ``oracle.jacobian``.
         Each of the three is evaluated through ``graphs`` (the solver's
-        ``GraphCache``, else one of its own), so on CUDA it replays as a
-        captured graph from a shape's second Newton step on."""
+        ``GraphCache``), so on CUDA it replays as a captured graph from a
+        shape's second Newton step on."""
         sp = self._struct_parts
         gather, nlr, I, d = sp["gather"], sp["nlr"], sp["I"], sp["d"]
         d_g, d_h, d2_lag = sp["d_g"], sp["d_h"], sp["d2_lag"]
         vmap = torch.func.vmap
-        graphs = GraphCache() if graphs is None else graphs
 
         def hessians(V, tvp, tvpN, p, om, tm, lam_g, lam_h):
             return vmap(d2_lag)(V, tvp, tvpN, p, om, tm,
@@ -894,7 +892,7 @@ class MPC(Optimizer, IteratedVariables):
                          for x in (Hi, Jg_i, Jh_i)) + (sig_w, inv_sig_s)
         return prepare
 
-    def _make_structured_solve(self, delta_cons, n_refine=1, graphs=None):
+    def _make_structured_solve(self, delta_cons, n_refine, graphs):
         """Uncondensed structured KKT backend: instance derivative tensors
         are gathered into per-scenario-chain band blocks plus a root border
         and solved by the band sweep with a Schur complement on the root
@@ -983,7 +981,7 @@ class MPC(Optimizer, IteratedVariables):
         return dict(int_cols=int_cols, bnd_cols=bnd_cols,
                     int_rows=int_rows, bnd_rows=bnd_rows, A_int=A_int)
 
-    def _make_condensed_solve(self, delta_cons, n_refine=1, graphs=None):
+    def _make_condensed_solve(self, delta_cons, n_refine, graphs):
         """Condensed structured KKT backend: per-instance collocation
         interiors are Schur-eliminated by batched dense solves, then the
         small boundary band (block size O(n_x + n_u)) is swept by the BBD
@@ -1098,9 +1096,8 @@ class MPC(Optimizer, IteratedVariables):
                     Hi.new_full((B, n_x), -delta_cons))
                 rhs_c, rhs_r = assembler.pack_rhs(b_w, b_g, b_h)
                 rhs_c, rhs_r = assembler.add_corrections(rhs_c, rhs_r, corr)
-            n_ref = 0 if r_dw.dtype == torch.float32 else n_refine
             x_c, x_r = bbd_solve(D, U, Lo, Bord, Root, rhs_c, rhs_r,
-                                 n_refine=n_ref, backend=backend)
+                                 n_refine=n_refine, backend=backend)
             with profiler.span("kkt.expand"):
                 dw, dg, dh, x_ent = assembler.unpack_sol(x_c, x_r)
                 x_int = Y[..., n_be] - torch.einsum("...ib,...b->...i",
@@ -1111,42 +1108,25 @@ class MPC(Optimizer, IteratedVariables):
 
         return prepare, solve
 
-    def _make_kkt_backend(self, delta_cons, n_refine=1, allow_condensed=True,
-                          graphs=None):
-        """Pick the structured KKT backend: condensed band when the
-        transcription allows it, plain BBD band otherwise.  Pass the
-        solver's ``GraphCache`` as ``graphs``, so that the derivative
-        oracles' graphs share its pool."""
-        st = self.settings
-        if (allow_condensed and st.kkt_solver in ("auto", "condensed")
+    def _make_kkt_backend(self, kkt, delta_cons, n_refine, graphs):
+        """The structured KKT backend of :meth:`Optimizer._make_solver`:
+        ``"condensed"`` condenses where ``settings.kkt_solver`` and the
+        transcription allow it (:meth:`_condensation_plan`); otherwise, as
+        for ``"bbd"``, the plain BBD band."""
+        if (kkt == "condensed"
+                and self.settings.kkt_solver in ("auto", "condensed")
                 and self._condensation_plan() is not None):
-            return self._make_condensed_solve(delta_cons, n_refine=n_refine,
-                                              graphs=graphs)
-        return self._make_structured_solve(delta_cons, n_refine=n_refine,
-                                           graphs=graphs)
+            return self._make_condensed_solve(delta_cons, n_refine, graphs)
+        return self._make_structured_solve(delta_cons, n_refine, graphs)
 
     def _create_solver(self):
         st = self.settings
-        ipm_settings = ipm_settings_from(st)
         n_stages = st.n_horizon + 1
         use_structured = (st.kkt_solver in ("tridiag", "condensed")
                           or (st.kkt_solver == "auto"
                               and self.n_opt_x > 600 and n_stages >= 4))
-        structured_solve = None
-        graphs = GraphCache()
-        if use_structured:
-            structured_solve = self._make_kkt_backend(
-                ipm_settings.delta_cons, graphs=graphs)
-        self._solve_raw = make_ipm_solver(
-            self._f_fn, self._g_fn, self._h_fn,
-            self._lb_opt_x, self._ub_opt_x,
-            self.n_opt_lagr, self._n_ineq, settings=ipm_settings,
-            hess_fn=self._hess_fn,
-            grad_f_fn=self._grad_f_fn,
-            jac_g_fn=self._jac_g_fn if self.n_instances else None,
-            jac_h_fn=self._jac_h_fn if self._n_ineq else None,
-            structured_solve=structured_solve, graphs=graphs,
-            dtype=self._dtype, device=self._device)
+        self._solve_raw = self._make_solver(
+            ipm_settings_from(st), "condensed" if use_structured else "dense")
         self._optx_resolver = make_mpc_resolver(self)
         self._bnb = None    # branch-and-bound over this solver's oracles
         self.opt_x_num = np.zeros(self.n_opt_x)

@@ -39,7 +39,7 @@ from ..tools import NumStruct, StructSpec
 from ..tools import _profiler as profiler
 from ..tools._optxview import make_mhe_resolver
 from ..data import Data
-from ..solver.ipm import make_ipm_solver, ipm_settings_from
+from ..solver.ipm import ipm_settings_from
 from ..solver.bbd import (BBDAssembler, bbd_kkt_solve, band_backend,
                           demote_by_usage, scatter_sum_cols)
 from .. import sym as casym
@@ -614,12 +614,14 @@ class MHE(Optimizer, IteratedVariables):
         self._struct_parts = dict(inst_derivs=inst_derivs, R_g=R_g, R_h=R_h,
                                   E=E, nlr=nlr, N=N)
 
-    def _make_structured_solve(self, delta_cons, n_refine=1):
-        """Bordered-band KKT backend: a single stage chain with the
+    def _make_kkt_backend(self, kkt, delta_cons, n_refine, graphs):
+        """The structured KKT backend of :meth:`Optimizer._make_solver`,
+        for every ``kkt`` the bordered band: a single stage chain with the
         estimated parameters (and single-slack eps) in the BBD root
         (reference hands this sparsity to IPOPT, estimator/_mhe.py:1251;
         p_est couples every stage, which is exactly the arrowhead border
-        solver/bbd.py factorizes)."""
+        solver/bbd.py factorizes).  Its derivatives evaluate eagerly, not
+        through ``graphs``."""
         sp = self._struct_parts
         L = self.layout
         N, E, nlr = sp["N"], sp["E"], sp["nlr"]
@@ -653,24 +655,12 @@ class MHE(Optimizer, IteratedVariables):
 
     def _create_solver(self):
         st = self.settings
-        ipm_settings = ipm_settings_from(st)
         use_structured = (st.kkt_solver == "tridiag"
                           or (st.kkt_solver == "auto"
                               and self.n_opt_x > 600
                               and st.n_horizon >= 4))
-        structured_solve = None
-        if use_structured:
-            structured_solve = self._make_structured_solve(
-                ipm_settings.delta_cons)
-        self._solve_raw = make_ipm_solver(
-            self._f_fn, self._g_fn, self._h_fn,
-            self._lb_opt_x, self._ub_opt_x,
-            self.n_opt_lagr, self._n_ineq, settings=ipm_settings,
-            hess_fn=self._hess_fn, grad_f_fn=self._grad_f_fn,
-            jac_g_fn=self._jac_g_fn,
-            jac_h_fn=self._jac_h_fn if self._n_ineq else None,
-            structured_solve=structured_solve,
-            dtype=self._dtype, device=self._device)
+        self._solve_raw = self._make_solver(
+            ipm_settings_from(st), "bbd" if use_structured else "dense")
         self._optx_resolver = make_mhe_resolver(self)
         self.opt_x_num = np.zeros(self.n_opt_x)
         self.opt_p_num = np.zeros(self.n_opt_p)

@@ -17,6 +17,9 @@ import torch
 
 from .tools import NumStruct, StructSpec, FieldAccessor
 from .ops.collocation import lagrange_matrices
+from .solver._graphs import GraphCache
+from .solver.ipm import make_ipm_solver
+from .tools import _profiler as profiler
 from . import sym as casym
 
 
@@ -234,6 +237,41 @@ class Optimizer:
         self.tvp_fun = None
         self.p_fun = None
         self.solver_stats: dict = {}
+
+    def _make_solver(self, ipm_settings, kkt, n_refine=1,
+                     dynamic_bounds=False):
+        """The interior-point solver over this optimizer's NLP oracles, on
+        its device and in its dtype (``solver/ipm.py:make_ipm_solver``):
+        the one place a solver is built.  ``solve.graphs`` is the one
+        ``GraphCache`` of the solver's life.
+
+        ``kkt`` names the KKT backend: ``"dense"``; ``"bbd"``, the
+        uncondensed bordered band; or ``"condensed"``, condensed where the
+        optimizer allows it and else uncondensed (the subclass's
+        ``_make_kkt_backend``).  A structured backend evaluates its
+        derivative oracles through the solver's cache and takes
+        ``n_refine`` refinement passes of the band solve in float64, none
+        in float32 (the IPM's inexact-Newton acceptance absorbs the rest).
+        """
+        graphs = GraphCache()
+        backend = None
+        if kkt != "dense":
+            backend = self._make_kkt_backend(
+                kkt, ipm_settings.delta_cons,
+                0 if self._dtype == torch.float32 else n_refine, graphs)
+        return make_ipm_solver(
+            self._f_fn, self._g_fn, self._h_fn, self._lb_opt_x,
+            self._ub_opt_x, self.n_opt_lagr, self._n_ineq,
+            settings=ipm_settings, hess_fn=self._hess_fn,
+            grad_f_fn=self._grad_f_fn, jac_g_fn=self._jac_g_fn,
+            jac_h_fn=self._jac_h_fn, structured_solve=backend,
+            dynamic_bounds=dynamic_bounds, graphs=graphs, dtype=self._dtype,
+            device=self._device)
+
+    def _to_device(self, site, x):
+        """``x`` in this optimizer's dtype on its device; a copy from the
+        host is one host sync (span ``sync.<site>``)."""
+        return profiler.to_device(site, x, self._dtype, self._device)
 
     # -------------------------------------------------- solution struct view --
     @property

@@ -21,8 +21,7 @@ import torch
 import torch.distributed as dist
 
 from .._config import resolve_device
-from ..solver._graphs import GraphCache
-from ..solver.ipm import IPMSettings, IPMSolution, make_ipm_solver
+from ..solver.ipm import IPMSettings, IPMSolution
 from ..tools import _profiler as profiler
 
 
@@ -98,36 +97,14 @@ def make_batch_solver(mpc, tol=1e-6, max_iter=60, use_structured=True,
         ipm_settings = IPMSettings(tol=tol, max_iter=max_iter,
                                    **ipm_overrides)
         n_refine = 3
-    structured = None
-    graphs = GraphCache()
-    if use_structured and hasattr(mpc, "_struct_parts"):
-        structured = mpc._make_kkt_backend(ipm_settings.delta_cons,
-                                           n_refine=n_refine, graphs=graphs)
-    solve = make_ipm_solver(
-        mpc._f_fn, mpc._g_fn, mpc._h_fn,
-        mpc._lb_opt_x, mpc._ub_opt_x,
-        mpc.n_opt_lagr, mpc._n_ineq, settings=ipm_settings,
-        hess_fn=mpc._hess_fn, grad_f_fn=mpc._grad_f_fn,
-        jac_g_fn=mpc._jac_g_fn, jac_h_fn=mpc._jac_h_fn,
-        structured_solve=structured, graphs=graphs, dtype=mpc._dtype,
-        device=mpc._device)
-
-    def T(x):
-        """numpy, a scalar or a tensor -> the MPC's dtype and device."""
-        if torch.is_tensor(x):
-            return x.to(device=mpc._device, dtype=mpc._dtype)
-        return mpc._tensor(x)
-
-    def T_sync(site, x):
-        """``T(x)``; a copy from the host is one host sync (span
-        ``sync.<site>``)."""
-        return profiler.to_device(site, x, mpc._dtype, mpc._device)
-
-    base_pvec = T(mpc._assemble_opt_p(np.zeros(mpc.model.n_x)))
+    solve = mpc._make_solver(ipm_settings,
+                             "condensed" if use_structured else "dense",
+                             n_refine=n_refine)
+    base_pvec = mpc._tensor(mpc._assemble_opt_p(np.zeros(mpc.model.n_x)))
+    T_sync = mpc._to_device
     x0_sl = mpc._p_sl["x0"]
     u_sl = mpc.layout.sl(("u", 0, 0))
-    u_scaling = T(mpc._u_scaling.data)
-    n_zl = mpc.n_opt_x + mpc._n_ineq
+    u_scaling = mpc._tensor(mpc._u_scaling.data)
 
     def solve_batch(x0s, w0s, lam0s=None, mu0=None, zl0s=None, zu0s=None):
         B = x0s.shape[0]
@@ -160,8 +137,8 @@ def make_batch_solver(mpc, tol=1e-6, max_iter=60, use_structured=True,
                 if zl0s is None:
                     # zeros fall through init_state's z_init default per
                     # entry
-                    zl0s = torch.zeros((B, n_zl))
-                    zu0s = torch.zeros((B, n_zl))
+                    zl0s = torch.zeros((B, solve.n_bound_duals))
+                    zu0s = torch.zeros((B, solve.n_bound_duals))
                 sol = solve(T_sync("w0", w0s), pvec, T_sync("lam0", lam0s),
                             T_sync("mu0", mu0), T_sync("zl0", zl0s),
                             T_sync("zu0", zu0s))

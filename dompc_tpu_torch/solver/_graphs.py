@@ -19,7 +19,11 @@ The policy reads only what a call can observe:
 * the first call of a key (the function, and every argument's shape, dtype
   and device) runs eagerly: it is the warm-up (lazy constants, cuBLAS);
 * the second captures the graph on a side stream and replays it at once
-  (captured kernels do not run);
+  (captured kernels do not run), with Python's garbage collector paused: a
+  collection inside the capture would destroy the graphs of solvers no
+  longer referenced, which CUDA forbids while a stream captures (the
+  capture then fails); ``torch.cuda.graph`` collects before capturing for
+  the same reason;
 * every later call copies the arguments into the graph's static inputs,
   replays it, and returns clones of the static outputs: a caller keeps its
   results across later evaluations, which a replay overwrites in place;
@@ -34,14 +38,12 @@ Each kind of evaluation counts apart and replays in a span of its own
 (:data:`KINDS`): the point evaluations in ``tools/_profiler.py:
 oracle_graph`` and span ``oracle.replay``, the derivative oracles in
 ``prepare_graph`` and span ``kkt.replay``.  A solver and its structured
-backend evaluate through one cache, so both kinds share its pool.
-
-``functions`` names the evaluations a cache serves: a solver that shares
-its cache (the IPM's dynamic-bounds calls build one solver a call) takes
-the functions registered there, so its evaluations have the keys, and the
-graphs, of the solver that made the cache.
+backend evaluate through one cache (``Optimizer._make_solver`` makes it),
+so both kinds share its pool.
 """
 from __future__ import annotations
+
+import gc
 
 import torch
 from torch.utils import _pytree as pytree
@@ -92,11 +94,6 @@ class GraphCache:
         self._device_type = device_type
         self._keys = {}
         self._pool = self._stream = None
-        self.functions = {}
-
-    def register(self, name, fn):
-        """The function evaluated under ``name``: the first registered."""
-        return self.functions.setdefault(name, fn)
 
     def _eligible(self, args):
         if not args:
@@ -147,6 +144,8 @@ class GraphCache:
         if entry is _ONCE:
             inputs = [a.clone(memory_format=torch.contiguous_format)
                       for a in args]
+            collecting = gc.isenabled()
+            gc.disable()
             try:
                 replay, outputs = self._capture(fn, inputs)
                 graph = _Graph(replay, inputs, outputs)
@@ -158,6 +157,9 @@ class GraphCache:
                 counts.captures += 1
                 graph.replay()
                 return graph.outputs()
+            finally:
+                if collecting:
+                    gc.enable()
         elif entry is None:
             self._keys[key] = _ONCE
         counts.eager += 1

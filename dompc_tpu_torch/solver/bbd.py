@@ -551,19 +551,18 @@ class CondensedAssembler:
                 flat[:, self.ent_pos].reshape(B, -1, self.n_ent))
 
 
-def bbd_kkt_solve(assembler, dtype, backend, n_refine=1):
+def bbd_kkt_solve(assembler, dtype, backend, n_refine):
     """``solve(ctx, r_dw, r_g, r_h_mod, delta) -> (dw, dlam_g, dlam_h)`` of
     an uncondensed structured KKT backend: ``ctx`` is ``assembler.assemble``'s
     (D, U, Lo, Bord, Root) of a batch; the primal regularization ``delta``
-    (B,) goes on the variables' diagonal slots.  float32 takes no
-    refinement pass (the IPM's inexact-Newton acceptance absorbs the
-    rest); float64 takes ``n_refine``."""
+    (B,) goes on the variables' diagonal slots.  Each band solve takes
+    ``n_refine`` refinement passes (``Optimizer._make_solver`` decides them:
+    none in float32)."""
     device = assembler.w_pos.device
     mask_c = torch.as_tensor(assembler.w_mask_chain, dtype=dtype,
                              device=device)
     mask_r = torch.as_tensor(assembler.w_mask_root, dtype=dtype,
                              device=device)
-    n_ref = 0 if dtype == torch.float32 else n_refine
 
     def solve(ctx, r_dw, r_g, r_h_mod, delta):
         D, U, Lo, Bord, Root = ctx
@@ -572,7 +571,7 @@ def bbd_kkt_solve(assembler, dtype, backend, n_refine=1):
             Root = Root + torch.diag_embed(delta[:, None] * mask_r)
         rhs_c, rhs_r = assembler.pack_rhs(-r_dw, -r_g, -r_h_mod)
         x_c, x_r = bbd_solve(D, U, Lo, Bord, Root, rhs_c, rhs_r,
-                             n_refine=n_ref, backend=backend)
+                             n_refine=n_refine, backend=backend)
         return assembler.unpack_sol(x_c, x_r)
     return solve
 

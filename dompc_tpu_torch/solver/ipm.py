@@ -36,7 +36,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from .._config import resolve_device, resolve_dtype
@@ -254,7 +253,6 @@ def make_ipm_solver(
     dynamic_bounds: bool = False,
     dtype: Optional[torch.dtype] = None,
     device: Optional[torch.device] = None,
-    _bound_masks=None,
     graphs=None,
 ):
     """Build ``solve(w0, p, lam0=None, mu0=None, zl0=None, zu0=None,
@@ -283,13 +281,19 @@ def make_ipm_solver(
     asked for.
 
     ``solve.graphs`` is the ``GraphCache`` of its point evaluations
-    (``solver/_graphs.py``; ``solve.graphs.functions`` names them): the
-    ``graphs`` given, which the structured backend's derivative oracles
-    may evaluate through too, or else one of its own.
+    (``solver/_graphs.py``): the ``graphs`` given, which the structured
+    backend's derivative oracles evaluate through too
+    (``Optimizer._make_solver``), or else one of its own.
 
     ``dynamic_bounds=True`` lets a call pass per-element bound values
     ``lb_dyn``/``ub_dyn`` (B, n), as branch-and-bound's node batches do;
     which entries are bounded at all stays that of the static ``lb``/``ub``.
+    The same solver serves every call: the bounds are values of the call,
+    handed to each helper that reads them, and no point evaluation reads
+    them.
+    ``solve.lb``/``solve.ub`` are the static bounds as given, and
+    ``solve.n_bound_duals`` the width of ``zl0``/``zu0``: one dual for each
+    of the n variables and the ``n_ineq`` slacks.
     """
     st = settings
     if st.globalization not in ("filter", "merit"):
@@ -301,15 +305,11 @@ def make_ipm_solver(
     def T(x):
         return torch.as_tensor(x, dtype=dtype, device=device)
 
-    def bound(x):
-        return T(x) if torch.is_tensor(x) else T(np.asarray(x, dtype=float))
-
-    # lb/ub are (n,), or (B, n) when rebound per solve (dynamic_bounds)
-    lb, ub = bound(lb), bound(ub)
+    static_bounds = (lb, ub)
+    lb, ub = T(lb), T(ub)
     n = lb.shape[-1]
     m, q = n_eq, n_ineq
-    has_lb, has_ub = _bound_masks if _bound_masks is not None else (
-        torch.isfinite(lb), torch.isfinite(ub))
+    has_lb, has_ub = torch.isfinite(lb), torch.isfinite(ub)
     filter_mode = st.globalization == "filter"
     ones_q = torch.ones((q,), dtype=torch.bool, device=device)
     zeros_qb = torch.zeros((q,), dtype=torch.bool, device=device)
@@ -381,41 +381,36 @@ def make_ipm_solver(
         jtl = jgT_mv_(w, p, lam[:, :m]) + jhT_mv_(w, p, lam[:, m:])
         return gf, gv, hv, jtl
 
-    # the dynamic-bounds call's solver evaluates its maker's functions
-    # (none reads the bounds), so their graphs serve every such call
     graphs = GraphCache() if graphs is None else graphs
 
-    def at_point(name, fn):
+    def at_point(fn):
         """``fn`` as one IPM-level evaluation of the problem functions (span
         ``oracle.point``), replayed as a captured CUDA graph where the
-        solver's ``GraphCache`` can (``solver/_graphs.py``), which holds it
-        under ``name``.  The functions ending in ``_`` are the bare ones,
-        for composites that open one span of their own and for code under a
-        ``torch.func`` transform."""
-        fn = graphs.register(name, fn)
-
+        solver's ``GraphCache`` can (``solver/_graphs.py``).  The functions
+        ending in ``_`` are the bare ones, for composites that open one span
+        of their own and for code under a ``torch.func`` transform."""
         def evaluated(*args):
             with profiler.span("oracle.point"):
                 return graphs(fn, args)
         return evaluated
 
     (f_at, grad_f_at, eval_all, jgT_mv, jhT_mv, jg_mv, jh_mv, lag_hvp,
-     point_evals) = (at_point(*item) for item in dict(
-         f=f, grad_f=grad_f, eval_all=eval_all_, jgT_mv=jgT_mv_,
-         jhT_mv=jhT_mv_, jg_mv=jg_mv_, jh_mv=jh_mv_, hvp=hvp_,
-         point_evals=point_evals_).items())
+     point_evals) = map(at_point, (f, grad_f, eval_all_, jgT_mv_, jhT_mv_,
+                                   jg_mv_, jh_mv_, hvp_, point_evals_))
 
     # -- barrier helpers over the combined (w bounds, s >= 0) --------------
-    def dist_l(w, s):
-        return torch.where(has_lb, w - lb, 1.0), s  # slack lower bound is 0
+    # ``bnd`` is a call's (lb, ub): the static (n,) bounds, or a
+    # dynamic-bounds call's (B, n) values; has_lb/has_ub stay the static
+    # masks
+    def dist_l(w, s, bnd):
+        return torch.where(has_lb, w - bnd[0], 1.0), s  # slack lb is 0
 
-    def dist_u(w):
-        return torch.where(has_ub, ub - w, 1.0)
+    def dist_u(w, bnd):
+        return torch.where(has_ub, bnd[1] - w, 1.0)
 
-    def barrier_value(w, s, p, mu):
+    def barrier_value(w, s, p, mu, bnd):
         val = f_at(w, p)
-        dl = torch.where(has_lb, w - lb, 1.0)
-        du = torch.where(has_ub, ub - w, 1.0)
+        dl, du = dist_l(w, s, bnd)[0], dist_u(w, bnd)
         val = val - mu * torch.where(has_lb, torch.log(dl), 0.0).sum(-1)
         val = val - mu * torch.where(has_ub, torch.log(du), 0.0).sum(-1)
         if q:
@@ -432,7 +427,7 @@ def make_ipm_solver(
     mask_l = torch.cat([has_lb, ones_q])
     mask_zu = torch.cat([has_ub, zeros_qb])
 
-    def kkt_residuals(w, s, lam, zl, zu, p, pre=None):
+    def kkt_residuals(w, s, lam, zl, zu, p, bnd, pre=None):
         """Mu-independent residual summary (one evaluation serves
         err_mu / err_0 / err_{mu_new})."""
         gf, gv, hv, jtl = pre if pre is not None else point_evals(
@@ -442,8 +437,8 @@ def make_ipm_solver(
             + torch.where(has_ub, zu[:, :n], 0.0)
         r_ds = (lam[:, m:] - zl[:, n:]) if q else empty(w)
         r_p = torch.cat([gv, hv + s], -1)
-        dl_w, dl_s = dist_l(w, s)
-        du_w = dist_u(w)
+        dl_w, dl_s = dist_l(w, s, bnd)
+        du_w = dist_u(w, bnd)
         comp_l = torch.cat([torch.where(has_lb, dl_w * zl[:, :n], 0.0),
                             dl_s * zl[:, n:]], -1)
         comp_u = torch.where(has_ub, du_w * zu[:, :n], 0.0)
@@ -469,8 +464,8 @@ def make_ipm_solver(
         err_c = torch.maximum(_maxabs(c_l), _maxabs(c_u)) / s_c
         return torch.maximum(torch.maximum(err_d, err_p), err_c)
 
-    def kkt_error(w, s, lam, zl, zu, p, mu):
-        return err_from(kkt_residuals(w, s, lam, zl, zu, p), mu)
+    def kkt_error(w, s, lam, zl, zu, p, mu, bnd):
+        return err_from(kkt_residuals(w, s, lam, zl, zu, p, bnd), mu)
 
     # -- dense KKT solve ---------------------------------------------------
     def dense_kkt(Hw, Sig_w, Jg, Jh, inv_sig_s, r_dw, r_g, r_h_mod, delta):
@@ -495,15 +490,15 @@ def make_ipm_solver(
     solve_kkt = kkt_solve if kkt_solve is not None else dense_kkt
 
     # -- one Newton iteration at fixed mu ----------------------------------
-    def newton_step(w, s, lam, zl, zu, p, mu, prox, pre, live):
+    def newton_step(w, s, lam, zl, zu, p, mu, prox, pre, live, bnd):
         """``live`` (B,): the elements whose step is used; host-side skips
         look at those only (the others' results are discarded)."""
         B = w.shape[0]
         lam_g, lam_h = lam[:, :m], lam[:, m:]
         gf, gv, hv, jtl = pre
 
-        dl_w, dl_s = dist_l(w, s)
-        du_w = dist_u(w)
+        dl_w, dl_s = dist_l(w, s, bnd)
+        du_w = dist_u(w, bnd)
         dl_w = torch.clamp(dl_w, min=_TINY)
         du_w = torch.clamp(du_w, min=_TINY)
         dl_s = torch.clamp(dl_s, min=_TINY)
@@ -703,27 +698,27 @@ def make_ipm_solver(
         a_d = max_alpha(zl, dzl, tau * zl, mask_l)
         return torch.minimum(a_d, max_alpha(zu, dzu, tau * zu, mask_zu))
 
-    def fraction_to_boundary(w, s, dw, ds, zl, zu, dzl, dzu, mu):
+    def fraction_to_boundary(w, s, dw, ds, zl, zu, dzl, dzu, mu, bnd):
         tau = _c(torch.clamp(1.0 - mu, min=st.tau_min))
-        dl_w, dl_s = dist_l(w, s)
-        du_w = dist_u(w)
+        dl_w, dl_s = dist_l(w, s, bnd)
+        du_w = dist_u(w, bnd)
         a_p = max_alpha(w, dw, tau * dl_w, has_lb)
         a_p = torch.minimum(a_p, max_alpha(w, -dw, tau * du_w, has_ub))
         if q:
             a_p = torch.minimum(a_p, max_alpha(s, ds, tau * dl_s, ones_q))
         return a_p, dual_alpha(zl, zu, dzl, dzu, mu)
 
-    def clip_duals(w, s, zl, zu, mu):
+    def clip_duals(w, s, zl, zu, mu, bnd):
         """Keep the bound duals sane relative to the barrier (IPOPT's
         kappa_Sigma): within [mu/(kap d), kap mu/d] of their distances d;
         the upper duals only where an upper bound exists."""
         kap = 1e10
-        dl_w, dl_s = dist_l(w, s)
+        dl_w, dl_s = dist_l(w, s, bnd)
         dl = torch.clamp(torch.cat([dl_w, dl_s], -1), min=_TINY)
         zl = torch.minimum(torch.maximum(zl, _c(mu) / (kap * dl)),
                            kap * _c(mu) / dl)
-        du = torch.clamp(torch.cat([dist_u(w), torch.full_like(s, inf)], -1),
-                         min=_TINY)
+        du = torch.clamp(torch.cat([dist_u(w, bnd),
+                                    torch.full_like(s, inf)], -1), min=_TINY)
         zu = torch.where(
             mask_zu, torch.minimum(torch.maximum(zu, _c(mu) / (kap * du)),
                                    kap * _c(mu) / du), 0.0)
@@ -732,7 +727,7 @@ def make_ipm_solver(
     # -- main loop ----------------------------------------------------------
     slots = torch.arange(st.filter_size, device=device)
 
-    def take_step(stt, p, pre, res0, err_mu, live):
+    def take_step(stt, p, pre, res0, err_mu, live, bnd):
         """One globalized iteration; the results of elements outside
         ``live`` are discarded by the caller."""
         w, s, lam, zl, zu, mu = stt.w, stt.s, stt.lam, stt.zl, stt.zu, stt.mu
@@ -752,7 +747,7 @@ def make_ipm_solver(
         with profiler.span("ipm.newton"):
             (dw, ds, dlam, dzl, dzu, resolve_soc, delta_used, dlam_pre,
              resolve_resto) = newton_step(w, s, lam, zl, zu, p, mu_new,
-                                          stt.prox, pre, live)
+                                          stt.prox, pre, live, bnd)
         # the multiplier refit is part of the point, not of the searched
         # direction: applied at full step, outside the alpha-scaled update
         lam_b = lam + dlam_pre
@@ -765,7 +760,7 @@ def make_ipm_solver(
                                          / torch.clamp(dl_norm, min=_TINY),
                                          max=1.0))
         a_p, a_d = fraction_to_boundary(w, s, dw, ds, zl, zu, dzl, dzu,
-                                        mu_new)
+                                        mu_new, bnd)
         # the l1 merit's penalty
         nu = torch.clamp(2.0 * _maxabs(lam_b + dlam), min=1.0)
         err_ref = err_from(res0, mu_new)
@@ -774,7 +769,7 @@ def make_ipm_solver(
             err_t = kkt_error(w + _c(alpha) * dw_, s + _c(alpha) * ds_,
                               lam_b + _c(alpha) * dlam_,
                               zl + _c(a_d_) * dzl_, zu + _c(a_d_) * dzu_, p,
-                              mu_new)
+                              mu_new, bnd)
             return torch.isfinite(err_t) & (err_t < 0.99 * err_ref)
 
         def ls_trial(alpha, dw_, ds_):
@@ -782,7 +777,7 @@ def make_ipm_solver(
             (``globalization="merit"``)."""
             s_t = s + _c(alpha) * ds_
             w_t = w + _c(alpha) * dw_
-            phi = barrier_value(w_t, s_t, p, mu_new)
+            phi = barrier_value(w_t, s_t, p, mu_new, bnd)
             gv_t, hv_t = eval_all(w_t, p)
             vio = constraint_violation(gv_t, hv_t, s_t)
             merit0 = phi_k + nu * theta_k
@@ -795,8 +790,8 @@ def make_ipm_solver(
 
         def gphi_dot(dw_, ds_):
             """Directional derivative of the barrier objective."""
-            dlw_, dls_ = dist_l(w, s)
-            duw_ = dist_u(w)
+            dlw_, dls_ = dist_l(w, s, bnd)
+            duw_ = dist_u(w, bnd)
             gphi_w = pre[0] \
                 - torch.where(has_lb,
                               _c(mu_new) / torch.clamp(dlw_, min=_TINY), 0.0) \
@@ -814,7 +809,7 @@ def make_ipm_solver(
             decrease in theta or phi).  Returns (ok, f_type)."""
             w_t = w + _c(alpha) * dw_
             s_t = s + _c(alpha) * ds_
-            phi_t = barrier_value(w_t, s_t, p, mu_new)
+            phi_t = barrier_value(w_t, s_t, p, mu_new, bnd)
             gv_t, hv_t = eval_all(w_t, p)
             th_t = constraint_violation(gv_t, hv_t, s_t)
             fil_ok = torch.all(
@@ -836,7 +831,7 @@ def make_ipm_solver(
         # through restoration, to the chosen step size
         with profiler.span("ipm.line_search"):
             theta_k = constraint_violation(pre[1], pre[2], s)
-            phi_k = barrier_value(w, s, p, mu_new)
+            phi_k = barrier_value(w, s, p, mu_new, bnd)
 
             # full step if acceptable; else one second-order correction;
             # else backtracking.  KKT-error decrease is an OR-acceptance that
@@ -860,7 +855,7 @@ def make_ipm_solver(
             def do_soc():
                 dw2, ds2, dlam2, dzl2, dzu2 = resolve_soc(a_p)
                 a_p2, a_d2 = fraction_to_boundary(w, s, dw2, ds2, zl, zu,
-                                                  dzl2, dzu2, mu_new)
+                                                  dzl2, dzu2, mu_new, bnd)
                 kd2 = kkt_decrease(a_p2, dw2, ds2, dlam2, dzl2, dzu2, a_d2)
                 if filter_mode:
                     acc2, ft2 = accept_fn(a_p2, dw2, ds2, gphi_dot(dw2, ds2))
@@ -937,8 +932,8 @@ def make_ipm_solver(
                     dsr = _sel(fin, dsr, torch.zeros_like(dsr))
                     dzlr = _sel(fin, dzlr, torch.zeros_like(dzlr))
                     dzur = _sel(fin, dzur, torch.zeros_like(dzur))
-                    a_pr, a_dr = fraction_to_boundary(w, s, dwr, dsr, zl, zu,
-                                                      dzlr, dzur, mu_new)
+                    a_pr, a_dr = fraction_to_boundary(
+                        w, s, dwr, dsr, zl, zu, dzlr, dzur, mu_new, bnd)
                     al, r_ok = a_pr, ~use_resto
                     for _ in range(12):
                         go = ~r_ok
@@ -972,7 +967,8 @@ def make_ipm_solver(
         if not filter_mode:
             return merit_update(stt, p, mu_new, a_p, a_d, ok_full | use_soc,
                                 dw, ds, lam_b, dlam, dzl, dzu, delta_used,
-                                ls_trial, live, filt_th0, filt_ph0, filt_n0)
+                                ls_trial, live, filt_th0, filt_ph0, filt_n0,
+                                bnd)
 
         w_n = w + _c(alpha) * dw
         s_n = s + _c(alpha) * ds
@@ -983,7 +979,7 @@ def make_ipm_solver(
         eff_ad = torch.where(use_resto, a_dr, a_d)
         zl_n = zl + _c(eff_ad) * _sel(use_resto, dzlr, dzl)
         zu_n = zu + _c(eff_ad) * _sel(use_resto, dzur, dzu)
-        zl_c, zu_c = clip_duals(w_n, s_n, zl_n, zu_n, mu_new)
+        zl_c, zu_c = clip_duals(w_n, s_n, zl_n, zu_n, mu_new, bnd)
 
         # filter augmentation (W-B A-6): h-type acceptances and line-search
         # failures at infeasible points carve out (theta, phi)
@@ -1002,13 +998,13 @@ def make_ipm_solver(
         prox_n = torch.clamp(prox_n, 0.0, st.prox_max)
         if st.debug:
             debug_iteration(stt, p, mu_new, res0, pre, alpha, a_d, nu, dlam,
-                            w, s, dw, ds)
+                            w, s, dw, ds, bnd)
         return (w_n, s_n, lam_n, zl_c, zu_c, mu_new, prox_n, filt_th1,
                 filt_ph1, filt_n1)
 
     def merit_update(stt, p, mu_new, a_p, a_d, done, dw, ds, lam_b, dlam,
                      dzl, dzu, delta_used, ls_trial, live, filt_th0,
-                     filt_ph0, filt_n0):
+                     filt_ph0, filt_n0, bnd):
         """The rest of a ``globalization="merit"`` iteration: backtracking
         on the l1 merit (seeded with the full-step decision ``done``), no
         restoration, and the Levenberg adaptation of the legacy rule."""
@@ -1031,7 +1027,7 @@ def make_ipm_solver(
         s_n = s + _c(alpha) * ds
         lam_n = lam_b + _c(alpha) * dlam
         zl_c, zu_c = clip_duals(w_n, s_n, zl + _c(a_d) * dzl,
-                                zu + _c(a_d) * dzu, mu_new)
+                                zu + _c(a_d) * dzu, mu_new, bnd)
         # small accepted steps -> more damping; good steps -> less
         prox_n = torch.where(
             alpha < 0.1, torch.clamp(delta_used * 10.0, min=1e-8),
@@ -1040,17 +1036,17 @@ def make_ipm_solver(
         if st.debug:
             nu = torch.clamp(2.0 * _maxabs(lam_b + dlam), min=1.0)
             debug_iteration(stt, p, mu_new, None, None, alpha, a_d, nu,
-                            dlam, w, s, dw, ds)
+                            dlam, w, s, dw, ds, bnd)
         return (w_n, s_n, lam_n, zl_c, zu_c, mu_new, prox_n, filt_th0,
                 filt_ph0, filt_n0)
 
     def debug_iteration(stt, p, mu_new, res0, pre, alpha, a_d, nu, dlam,
-                        w, s, dw, ds):
+                        w, s, dw, ds, bnd):
         """``IPMSettings.debug``: the step's blocking bound and the
         iteration's summary line."""
         tau = _c(torch.clamp(1.0 - mu_new, min=st.tau_min))
-        dlw, dls = dist_l(w, s)
-        duw = dist_u(w)
+        dlw, dls = dist_l(w, s, bnd)
+        duw = dist_u(w, bnd)
         rat = torch.minimum(
             torch.where(has_lb & (dw < 0),
                         -tau * dlw / torch.where(dw == 0, -1.0, dw), inf),
@@ -1065,24 +1061,25 @@ def make_ipm_solver(
                dwb=pick(dw), dlb=pick(dlw), dub=pick(duw), sr=s_rat)
         if pre is None:
             pre = point_evals(w, stt.lam, p)
-            res0 = kkt_residuals(w, s, stt.lam, stt.zl, stt.zu, p, pre=pre)
+            res0 = kkt_residuals(w, s, stt.lam, stt.zl, stt.zu, p, bnd,
+                                 pre=pre)
         _debug("it={it} mu={mu:.1e} err0={e0:.2e} errmu={em:.2e} d={ed:.1e} "
                "p={ep:.1e} phi={ph:.8e} th={th:.2e} alpha={a:.2e} "
                "a_d={ad:.2e} nu={nu:.1e} |dlam|={dl:.1e} |lam|={l:.1e} "
                "prox={px:.1e}", it=stt.it, mu=mu_new,
                e0=err_from(res0, 0.0), em=err_from(res0, stt.mu),
-               ed=res0[0], ep=res0[1], ph=barrier_value(w, s, p, mu_new),
+               ed=res0[0], ep=res0[1], ph=barrier_value(w, s, p, mu_new, bnd),
                th=constraint_violation(pre[1], pre[2], s), a=alpha, ad=a_d,
                nu=nu, dl=_maxabs(dlam), l=_maxabs(stt.lam), px=stt.prox)
 
-    def body(stt, p, active, etol):
+    def body(stt, p, active, etol, bnd):
         """One loop pass; the caller keeps its results for ``active``
         elements only.  An element whose KKT error is within ``etol``
         converges."""
         w, s, lam, zl, zu = stt.w, stt.s, stt.lam, stt.zl, stt.zu
         with profiler.span("ipm.evals"):
             pre = point_evals(w, lam, p)
-            res0 = kkt_residuals(w, s, lam, zl, zu, p, pre=pre)
+            res0 = kkt_residuals(w, s, lam, zl, zu, p, bnd, pre=pre)
             err_0 = err_from(res0, 0.0)
             converged = err_0 <= etol
         old = (w, s, lam, zl, zu, stt.mu, stt.prox, stt.filt_th,
@@ -1093,7 +1090,7 @@ def make_ipm_solver(
             # step and discards it); it leaves the loop after this pass
             with profiler.span("ipm.step"):
                 new = take_step(stt, p, pre, res0, err_from(res0, stt.mu),
-                                live)
+                                live, bnd)
             solve.newton_steps += 1
             new = tuple(_sel(converged, o, nw) for o, nw in zip(old, new))
         else:
@@ -1121,7 +1118,7 @@ def make_ipm_solver(
 
     loop_tol = st.tol if st.tol_loop is None else max(st.tol_loop, st.tol)
 
-    def solver_loop(state, p, it_cap=None, exit_tol=None):
+    def solver_loop(state, p, bnd, it_cap=None, exit_tol=None):
         """The globalized loop.  ``it_cap``/``exit_tol`` parametrize the
         filter-RTI hybrid (a small iteration budget, the drift band as the
         exit); the defaults are the full loop's."""
@@ -1131,7 +1128,8 @@ def make_ipm_solver(
             active = ~state.converged & (state.it < cap)
             if not profiler.any_true("loop", active):
                 return state
-            state = freeze(active, body(state, p, active, etol), state)
+            state = freeze(active, body(state, p, active, etol, bnd),
+                           state)
 
     # -- real-time iteration: fixed Newton steps from a warm start ----------
     # Exactly rti_iters damped Newton steps (no line search, no barrier
@@ -1140,7 +1138,7 @@ def make_ipm_solver(
     # element leaves the corrective loop on its own and is frozen there (a
     # vmapped while_loop in the JAX package): a data-dependent host loop
     # with one sync per pass.
-    def rti_newton(stt, p, mu, live):
+    def rti_newton(stt, p, mu, live, bnd):
         w, s, lam, zl, zu = stt.w, stt.s, stt.lam, stt.zl, stt.zu
         with profiler.span("ipm.evals"):
             pre = point_evals(w, lam, p)
@@ -1148,10 +1146,11 @@ def make_ipm_solver(
             (dw, ds, dlam, dzl, dzu, _soc, _delta, dlam_pre,
              _resto) = newton_step(w, s, lam, zl, zu, p, mu,
                                    torch.clamp(stt.prox, min=st.rti_prox),
-                                   pre, live)
+                                   pre, live, bnd)
         solve.newton_steps += 1
         lam = lam + dlam_pre
-        a_p, a_d = fraction_to_boundary(w, s, dw, ds, zl, zu, dzl, dzu, mu)
+        a_p, a_d = fraction_to_boundary(w, s, dw, ds, zl, zu, dzl, dzu, mu,
+                                        bnd)
         # trust-region cap: scale the whole primal-dual update uniformly
         cap = torch.clamp(st.rti_step_max / (_maxabs(dw) + 1e-12), max=1.0)
         a_p = torch.minimum(a_p, cap)
@@ -1159,19 +1158,19 @@ def make_ipm_solver(
         w_n = w + _c(a_p) * dw
         s_n = s + _c(a_p) * ds
         zl_n, zu_n = clip_duals(w_n, s_n, zl + _c(a_d) * dzl,
-                                zu + _c(a_d) * dzu, mu)
+                                zu + _c(a_d) * dzu, mu, bnd)
         return stt._replace(w=w_n, s=s_n, lam=lam + _c(a_p) * dlam, zl=zl_n,
                             zu=zu_n, it=stt.it + 1)
 
-    def rti_loop(state, p):
+    def rti_loop(state, p, bnd):
         every = torch.ones_like(state.converged)
         final = state
         with profiler.span("ipm.rti"):
             for i in range(st.rti_iters):
                 final = rti_newton(final, p, state.mu * st.rti_mu_decay ** i,
-                                   every)
+                                   every, bnd)
         err = kkt_error(final.w, final.s, final.lam, final.zl, final.zu, p,
-                        0.0)
+                        0.0, bnd)
         if st.rti_drift_tol is None:
             return final._replace(kkt_err=err, converged=err <= st.tol)
         mu_ex = torch.clamp(state.mu * st.rti_mu_decay ** st.rti_iters,
@@ -1184,16 +1183,17 @@ def make_ipm_solver(
                     & (k < st.rti_extra_max)
                 if not profiler.any_true("rti_drift", go):
                     break
-                nxt = rti_newton(final, p, mu_ex, go)
+                nxt = rti_newton(final, p, mu_ex, go, bnd)
                 nxt = nxt._replace(kkt_err=kkt_error(
-                    nxt.w, nxt.s, nxt.lam, nxt.zl, nxt.zu, p, 0.0))
+                    nxt.w, nxt.s, nxt.lam, nxt.zl, nxt.zu, p, 0.0, bnd))
                 final = freeze(go, nxt, final)
                 k = k + go.to(k.dtype)
         return final._replace(
             converged=final.kkt_err <= max(st.rti_drift_tol, st.tol))
 
-    def init_state(w0, p, lam0=None, mu0=None, zl0=None, zu0=None):
+    def init_state(w0, p, bnd, lam0=None, mu0=None, zl0=None, zu0=None):
         B = w0.shape[0]
+        lb, ub = bnd
         # push the initial point into the interior (IPOPT bound_push/frac)
         k1, k2 = st.bound_push, st.bound_frac
         lo = torch.where(has_lb, lb, -inf)
@@ -1226,7 +1226,7 @@ def make_ipm_solver(
         if zl0 is not None:
             restart_l = zl
             if use_central:
-                dl_w0, dl_s0 = dist_l(w, s)
+                dl_w0, dl_s0 = dist_l(w, s, bnd)
                 restart_l = torch.clamp(
                     _c(mu) / torch.clamp(torch.cat([dl_w0, dl_s0], -1),
                                          min=1e-8), max=z0v)
@@ -1235,7 +1235,7 @@ def make_ipm_solver(
         if zu0 is not None:
             restart_u = zu
             if use_central:
-                du0 = torch.cat([dist_u(w), w.new_ones((B, q))], -1)
+                du0 = torch.cat([dist_u(w, bnd), w.new_ones((B, q))], -1)
                 restart_u = torch.clamp(
                     _c(mu) / torch.clamp(du0, min=1e-8), max=z0v)
             zu = torch.where(zu0 > 1e-12, torch.maximum(zu0, _c(mu) / 1e8),
@@ -1256,15 +1256,15 @@ def make_ipm_solver(
             th_max=1e4 * torch.clamp(theta0, min=1.0),
             th_min=1e-4 * torch.clamp(theta0, min=1.0))
 
-    def estimate_duals(w, s, zl, zu, p, mu):
+    def estimate_duals(w, s, zl, zu, p, mu, bnd):
         """Least-squares multipliers for a cold solve (``cold_dual_init``,
         IPOPT's least_square_init_duals analogue): one proximal-weighted
         KKT solve at lam = 0.  An estimate that is not finite or exceeds
         ``lam_init_max`` falls back to lam = 0, element by element."""
         B = w.shape[0]
-        dl_w, dl_s = dist_l(w, s)
+        dl_w, dl_s = dist_l(w, s, bnd)
         dl_w = torch.clamp(dl_w, min=_TINY)
-        du_w = torch.clamp(dist_u(w), min=_TINY)
+        du_w = torch.clamp(dist_u(w, bnd), min=_TINY)
         dl_s = torch.clamp(dl_s, min=_TINY)
         sig_w = torch.where(has_lb, zl[:, :n] / dl_w, 0.0) \
             + torch.where(has_ub, zu[:, :n] / du_w, 0.0)
@@ -1304,8 +1304,9 @@ def make_ipm_solver(
     # driven to zero) converge quadratically to the exact KKT point.
     BIG = 1e10
 
-    def polish(w, s, lam, zl, zu, p):
+    def polish(w, s, lam, zl, zu, p, bnd):
         B = w.shape[0]
+        lb, ub = bnd
         dl_w = torch.where(has_lb, w - lb, inf)
         du_w = torch.where(has_ub, ub - w, inf)
         act_lb = has_lb & (zl[:, :n] > dl_w)
@@ -1361,7 +1362,7 @@ def make_ipm_solver(
     def _select(cond, a, b):
         return tuple(_sel(cond, y, x) for x, y in zip(a, b))
 
-    def solve_rti(state, p):
+    def solve_rti(state, p, bnd):
         """A warm call in RTI mode (``_solve_impl``'s RTI branch of the JAX
         package)."""
         if st.rti_filter:
@@ -1371,12 +1372,12 @@ def make_ipm_solver(
                 else max(st.rti_drift_tol, st.tol)
             cap = st.rti_iters + (st.rti_extra_max
                                   if st.rti_drift_tol is not None else 0)
-            final = solver_loop(state, p, it_cap=cap, exit_tol=etol)
+            final = solver_loop(state, p, bnd, it_cap=cap, exit_tol=etol)
             with profiler.span("ipm.finish"):
                 # the budget exit leaves final.w one step past the last
                 # evaluated error: certify on the better evaluated point
                 err_fin = kkt_error(final.w, final.s, final.lam, final.zl,
-                                    final.zu, p, 0.0)
+                                    final.zu, p, 0.0, bnd)
                 wd = final.best_err < err_fin
                 w_r, s_r, lam_r, zl_r, zu_r = _select(
                     wd, (final.w, final.s, final.lam, final.zl, final.zu),
@@ -1386,14 +1387,14 @@ def make_ipm_solver(
                     w=w_r, s=s_r, lam=lam_r, zl=zl_r, zu=zu_r,
                     f=f_at(w_r, p), kkt_err=err_r, iterations=final.it,
                     success=err_r <= etol)
-        final = rti_loop(state, p)
+        final = rti_loop(state, p, bnd)
         with profiler.span("ipm.finish"):
             return IPMSolution(
                 w=final.w, s=final.s, lam=final.lam, zl=final.zl,
                 zu=final.zu, f=f_at(final.w, p), kkt_err=final.kkt_err,
                 iterations=final.it, success=final.converged)
 
-    def finish(final, p):
+    def finish(final, p, bnd):
         """The solution from the loop's final state: the watchdog's choice,
         and the polish where it is on."""
         # a loose tol_loop exit certifies only at tol
@@ -1412,13 +1413,13 @@ def make_ipm_solver(
                 success=strict | (err_r <= st.tol))
         # watchdog: polish whichever of (final state, best-seen iterate)
         # has the smaller true KKT error
-        err_fin = kkt_error(*cur, p, 0.0)
+        err_fin = kkt_error(*cur, p, 0.0, bnd)
         wd = final.best_err < err_fin
         start = _select(wd, cur, final.best)
         err_ipm = torch.where(wd, final.best_err, err_fin)
         with profiler.span("ipm.polish"):
-            pol = polish(*start, p)
-        err_pol = kkt_error(*pol, p, 0.0)
+            pol = polish(*start, p, bnd)
+        err_pol = kkt_error(*pol, p, 0.0, bnd)
         if st.debug:
             _debug("polish: err_ipm={a:.2e} err_pol={b:.2e}", a=err_ipm,
                    b=err_pol)
@@ -1430,15 +1431,16 @@ def make_ipm_solver(
             kkt_err=err_f, iterations=final.it,
             success=strict | (err_f <= st.tol))
 
-    def solve_batch(w0, p, lam0, mu0, zl0, zu0):
+    def solve_batch(w0, p, lam0, mu0, zl0, zu0, bnd):
         with profiler.span("ipm.init"):
-            state = init_state(w0, p, lam0=lam0, mu0=mu0, zl0=zl0, zu0=zu0)
+            state = init_state(w0, p, bnd, lam0=lam0, mu0=mu0, zl0=zl0,
+                               zu0=zu0)
             if st.cold_dual_init and (m + q) and st.rti_iters == 0:
                 # cold elements (lam all zero) start from the least-squares
                 # multipliers; warm ones keep theirs
                 cold = _maxabs(state.lam) == 0.0
                 lam_ls = _cond_any("dual_init", cold, lambda: estimate_duals(
-                    state.w, state.s, state.zl, state.zu, p, state.mu),
+                    state.w, state.s, state.zl, state.zu, p, state.mu, bnd),
                     torch.zeros_like(state.lam))
                 lam_n = _sel(cold, lam_ls, state.lam)
                 if st.debug:
@@ -1449,10 +1451,10 @@ def make_ipm_solver(
         # RTI needs a warm primal-dual start: a cold call (no lam0) runs
         # the full globalized loop
         if st.rti_iters > 0 and lam0 is not None:
-            return solve_rti(state, p)
-        final = solver_loop(state, p)
+            return solve_rti(state, p, bnd)
+        final = solver_loop(state, p, bnd)
         with profiler.span("ipm.finish"):
-            return finish(final, p)
+            return finish(final, p, bnd)
 
     def solve(w0, p, lam0=None, mu0=None, zl0=None, zu0=None, lb_dyn=None,
               ub_dyn=None):
@@ -1463,25 +1465,16 @@ def make_ipm_solver(
             to, ("w0", "p", "lam0", "zl0", "zu0", "bounds", "bounds"),
             (w0, p, lam0, zl0, zu0, lb_dyn, ub_dyn))
         if lb_dyn is None and ub_dyn is None:
-            return solve_batch(w0, p, lam0, mu0, zl0, zu0)
+            return solve_batch(w0, p, lam0, mu0, zl0, zu0, (lb, ub))
         if not dynamic_bounds:
             raise ValueError("pass dynamic_bounds=True to make_ipm_solver "
                              "to use lb_dyn/ub_dyn")
-        # a solver over these bound values, with the static finiteness
-        # masks: every reader of the bounds (distances, the interior push,
-        # the clips, fraction to boundary) takes the per-element values
-        inner = make_ipm_solver(
-            f, g, h, lb if lb_dyn is None else torch.where(has_lb, lb_dyn, lb),
-            ub if ub_dyn is None else torch.where(has_ub, ub_dyn, ub),
-            n_eq, n_ineq, settings=settings, kkt_solve=kkt_solve,
-            hess_fn=hess_fn, grad_f_fn=grad_f_fn, jac_g_fn=jac_g_fn,
-            jac_h_fn=jac_h_fn, structured_solve=structured_solve,
-            dtype=dtype, device=device, _bound_masks=(has_lb, has_ub),
-            graphs=graphs)
-        out = inner(w0, p, lam0, mu0, zl0, zu0)
-        solve.newton_steps += inner.newton_steps
-        return out
+        return solve_batch(w0, p, lam0, mu0, zl0, zu0, (
+            lb if lb_dyn is None else torch.where(has_lb, lb_dyn, lb),
+            ub if ub_dyn is None else torch.where(has_ub, ub_dyn, ub)))
 
     solve.newton_steps = 0
     solve.graphs = graphs
+    solve.lb, solve.ub = static_bounds
+    solve.n_bound_duals = n + q
     return solve

@@ -20,8 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ._graphs import GraphCache
-from .ipm import make_ipm_solver, IPMSettings
+from .ipm import IPMSettings
 
 
 @dataclass
@@ -47,7 +46,9 @@ class BranchAndBound:
     """Best-first branch-and-bound over the integer entries of an MPC
     decision vector.
 
-    ``opt`` is the set-up MPC (its NLP oracles, bounds, device and dtype);
+    ``opt`` is the set-up MPC, whose ``_make_solver`` builds the node
+    solver (uncondensed BBD KKT, per-call bounds; its static bounds are the
+    root's) and whose ``_tensor`` puts host rows on its device.
     ``int_idx`` are indices into the decision vector, ``int_scale`` the
     per-entry scaling (integrality is imposed on ``w * scale``).
     """
@@ -62,33 +63,17 @@ class BranchAndBound:
         self.int_tol = float(int_tol)
         self.gap_tol = float(gap_tol)
         self.eps_fix = float(eps_fix)
-        lb, ub = opt._lb_opt_x, opt._ub_opt_x
-        if not (np.all(np.isfinite(lb[self.int_idx]))
-                and np.all(np.isfinite(ub[self.int_idx]))):
+        self._tensor = opt._tensor
+        self._solve = opt._make_solver(
+            IPMSettings(tol=tol, max_iter=max_iter, reg_retries=2,
+                        use_soc=False, do_polish=False),
+            "bbd", dynamic_bounds=True)
+        self._lb0, self._ub0 = self._solve.lb, self._solve.ub
+        if not (np.all(np.isfinite(self._lb0[self.int_idx]))
+                and np.all(np.isfinite(self._ub0[self.int_idx]))):
             raise ValueError(
                 "branch-and-bound needs finite bounds on every integer "
                 "input (set mpc.bounds for them)")
-        self._lb0, self._ub0 = lb, ub
-        self._dtype, self._device = opt._dtype, opt._device
-        settings = IPMSettings(tol=tol, max_iter=max_iter, reg_retries=2,
-                               use_soc=False, do_polish=False)
-        structured = None
-        graphs = GraphCache()
-        if hasattr(opt, "_make_structured_solve") \
-                and hasattr(opt, "_struct_parts"):
-            structured = opt._make_structured_solve(settings.delta_cons,
-                                                    graphs=graphs)
-        self._solve = make_ipm_solver(
-            opt._f_fn, opt._g_fn, opt._h_fn, lb, ub,
-            opt.n_opt_lagr, opt._n_ineq, settings=settings,
-            hess_fn=opt._hess_fn, grad_f_fn=opt._grad_f_fn,
-            jac_g_fn=opt._jac_g_fn, jac_h_fn=opt._jac_h_fn,
-            structured_solve=structured, dynamic_bounds=True, graphs=graphs,
-            dtype=self._dtype, device=self._device)
-
-    def _tensor(self, a):
-        return torch.as_tensor(np.asarray(a, dtype=float), dtype=self._dtype,
-                               device=self._device)
 
     def _node_solve(self, w0, pvec, lam0, zl0, zu0, lbs, ubs):
         """One frontier expansion: the root's primal-dual point broadcast

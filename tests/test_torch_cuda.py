@@ -784,12 +784,22 @@ def test_point_evaluations_replay_equal_eager_on_card(cstr_f32_on_card):
     """Each point evaluation of the IPM, replayed as a graph at points it
     was not captured at, equals its bare eager evaluation to float32
     roundoff; a key not seen in the solve runs eagerly once, captures at
-    its second sight and replays from its third."""
-    from dompc_tpu_torch.parallel import initial_guess_from_x0
+    its second sight and replays from its third.  The products the
+    throughput solve never evaluates are a full-featured solver's (its
+    ladder and residual checks evaluate them at every Newton step),
+    evaluated through the throughput solver's cache."""
+    from dompc_tpu_torch.parallel import (initial_guess_from_x0,
+                                          make_batch_solver)
     mpc, x0s, pvec = cstr_f32_on_card
     solve = _solver(mpc)
     sol, _ = solve(x0s, initial_guess_from_x0(mpc, x0s))
     assert bool(sol.success.all())
+    full = make_batch_solver(mpc, tol=1e-6, max_iter=3)
+    full(x0s, sol.w, sol.lam, 1e-4, sol.zl, sol.zu)
+    assert full.ipm.newton_steps > 0
+    graphs = solve.ipm.graphs
+    fns = {key[0].__name__: key[0] for key in full.ipm.graphs._keys}
+    fns.update({key[0].__name__: key[0] for key in graphs._keys})
     m = mpc.n_opt_lagr
     gen = torch.Generator(device="cuda").manual_seed(0)
     points = []
@@ -804,9 +814,8 @@ def test_point_evaluations_replay_equal_eager_on_card(cstr_f32_on_card):
         "jg_mv": lambda w, lam, dx: (w, pvec, dx),
         "hvp": lambda w, lam, dx: (w, pvec, lam[:, :m], lam[:, m:], dx),
     }
-    graphs = solve.ipm.graphs
     for name, args_of in cases.items():
-        fn = graphs.functions[name]
+        fn = fns[name + "_"]
         before = _graph_counts()
         for point in points:
             args = args_of(*point)
@@ -878,8 +887,8 @@ def _prepare_replays_equal_eager(mpc, sol, pvec, rel):
     from dompc_tpu_torch.solver._graphs import GraphCache
     bare_cache = GraphCache()
     bare_cache._eligible = lambda args: False
-    prepare, _ = mpc._make_kkt_backend(1e-8, graphs=GraphCache())
-    bare, _ = mpc._make_kkt_backend(1e-8, graphs=bare_cache)
+    prepare, _ = mpc._make_kkt_backend("condensed", 1e-8, 1, GraphCache())
+    bare, _ = mpc._make_kkt_backend("condensed", 1e-8, 1, bare_cache)
     m = mpc.n_opt_lagr
     sig = torch.ones_like(sol.w)
     inv_sig_s = torch.ones((sol.w.shape[0], mpc._n_ineq),
@@ -961,9 +970,9 @@ def test_failed_capture_stays_eager_on_card(host_op):
 
 @pytest.mark.cuda
 def test_dynamic_bounds_calls_replay_on_card():
-    """Branch-and-bound's calls with per-node bounds (a solver built per
-    call) evaluate through the graphs of the solver that serves them: the
-    second call captures nothing, and both answer as bare evaluations do."""
+    """Branch-and-bound's calls with per-node bounds are calls of one
+    solver, through its one cache: the later calls capture nothing, and
+    every call answers as bare evaluations do."""
     from dompc_tpu_torch.solver import _graphs
     from dompc_tpu_torch.solver.ipm import IPMSettings, make_ipm_solver
     _needs_card()

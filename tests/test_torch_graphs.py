@@ -4,20 +4,24 @@ function injected in place of the CUDA graph capture a key captures on its
 second sight, replays from its third, falls back to eager for good when
 its capture fails, never hands out a tensor that a later replay
 overwrites, and stays eager while autograd records or ``torch.func``
-transforms; a solver's dynamic-bounds calls share its cache and its
-graphs.  The derivative oracles of ``kkt.prepare`` go through the same
-policy, count in ``prepare_graph`` and replay in span ``kkt.replay``.  The
-replays on the card: ``tests/test_torch_cuda.py``."""
+transforms; one solver serves every bound set of its dynamic-bounds calls
+through its one cache.  The derivative oracles of ``kkt.prepare`` go
+through the same policy, count in ``prepare_graph`` and replay in span
+``kkt.replay``; every way to build a solver (``Optimizer._make_solver``)
+gives the solver and its structured backend one cache.  The replays on the
+card: ``tests/test_torch_cuda.py``."""
 import contextlib
+import gc
 
 import numpy as np
 import pytest
 import torch
 from torch.utils import _pytree as pytree
 
+from dompc_tpu_torch import optimizer as optimizer_mod
 from dompc_tpu_torch.parallel import batch as batch_mod
 from dompc_tpu_torch.solver import ipm as ipm_mod
-from dompc_tpu_torch.solver._graphs import GraphCache
+from dompc_tpu_torch.solver._graphs import GraphCache, _Graph
 from dompc_tpu_torch.tools import _profiler as profiler
 
 
@@ -117,6 +121,31 @@ def test_failing_capture_stays_eager_for_good():
     torch.testing.assert_close(outs[3][0], x * (y * 3), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("fail", [False, True])
+def test_capture_runs_with_the_collector_paused(fail):
+    """A collection inside a capture would destroy the graphs of solvers no
+    longer referenced, which CUDA forbids while a stream captures: the
+    capture runs with the garbage collector paused, and the collector's
+    state is restored after it, whether the capture succeeds or fails."""
+    seen = []
+    capture = _fake_capture([], fail=fail)
+
+    def recording(fn, static_args):
+        seen.append(gc.isenabled())
+        return capture(fn, static_args)
+    x, y = torch.rand(3, 2), torch.rand(3, 2)
+    for enabled in (True, False):
+        (gc.enable if enabled else gc.disable)()
+        try:
+            cache = GraphCache(capture=recording, device_type="cpu")
+            for _ in range(3):
+                cache(_fn, (x, y))
+            assert gc.isenabled() is enabled
+        finally:
+            gc.enable()
+    assert seen == [False, False]
+
+
 def test_replays_never_alias_a_result_held_by_the_caller():
     cache = GraphCache(capture=_fake_capture([]), device_type="cpu")
     x, y = torch.rand(3, 4), torch.rand(3, 4)
@@ -153,10 +182,11 @@ def test_autograd_and_torch_func_stay_eager():
 
 
 def test_dynamic_bounds_calls_share_the_solvers_graphs(monkeypatch):
-    """Each dynamic-bounds call builds a solver of its own over the call's
-    bounds; it evaluates the functions of the solver that made it through
-    that solver's cache, so the second call captures nothing, replays every
-    evaluation, and answers as the bare evaluations do."""
+    """One solver serves every bound set: its dynamic-bounds calls evaluate
+    through its one cache, so the first call captures each key once, the
+    later calls capture nothing and replay every evaluation, and each call
+    answers as a solver whose evaluations are bare, in as many Newton
+    steps."""
     made = []
 
     def cache():
@@ -164,9 +194,9 @@ def test_dynamic_bounds_calls_share_the_solvers_graphs(monkeypatch):
         return made[-1]
     w0 = torch.zeros((3, 2), dtype=torch.float64)
     lbs = [torch.full((3, 2), -10.0, dtype=torch.float64) + k
-           for k in (0.0, 9.5)]
+           for k in (0.0, 9.5, 0.0)]
     ubs = [torch.full((3, 2), 10.0, dtype=torch.float64) - k
-           for k in (0.0, 8.5)]
+           for k in (0.0, 8.5, 9.0)]
     bare = _toy_solver(dynamic_bounds=True)
     want = [bare(w0, _P, lb_dyn=lb, ub_dyn=ub) for lb, ub in zip(lbs, ubs)]
     monkeypatch.setattr(ipm_mod, "GraphCache", cache)
@@ -177,16 +207,21 @@ def test_dynamic_bounds_calls_share_the_solvers_graphs(monkeypatch):
         got.append(sol(w0, _P, lb_dyn=lb, ub_dyn=ub))
         deltas.append(_delta(before))
     assert len(made) == 1 and sol.graphs is made[0]
-    assert len(made[0].functions) == 9
+    keys = made[0]._keys
     assert deltas[0]["captures"] > 3 and deltas[0]["failures"] == 0
-    assert deltas[1]["captures"] == deltas[1]["eager"] == 0
-    assert deltas[1]["replays"] > 10
+    assert sum(d["captures"] for d in deltas) == deltas[0]["captures"] \
+        == sum(isinstance(v, _Graph) for v in keys.values())
+    for d in deltas[1:]:
+        assert d["captures"] == d["eager"] == d["failures"] == 0
+        assert d["replays"] > 10
+    assert sol.newton_steps == bare.newton_steps > 0
     for a, b in zip(got, want):
         assert bool(a.success.all()) and bool(b.success.all())
         assert torch.equal(a.iterations, b.iterations)
         torch.testing.assert_close(a.w, b.w, rtol=0, atol=0)
-    # the second bounds move the solution: the calls did not share answers
+    # the bounds move the solution: the calls did not share answers
     assert float((got[0].w - got[1].w).abs().max()) > 1e-3
+    assert float((got[0].w - got[2].w).abs().max()) > 1e-3
 
 
 # -- the derivative oracles of kkt.prepare (controller/_mpc.py) --------------
@@ -236,11 +271,10 @@ def test_prepare_oracles_capture_on_second_sight_and_replay_after(
     ``oracle_graph``."""
     mpc, _, _, sol = cstr_cpu
     m = mpc.n_opt_lagr
-    prepare, _ = mpc._make_kkt_backend(1e-8, graphs=GraphCache(
+    prepare, _ = mpc._make_kkt_backend("condensed", 1e-8, 1, GraphCache(
         capture=_fake_capture([]), device_type="cpu"))
-    bare, _ = mpc._make_kkt_backend(1e-8)
-    pvec = torch.as_tensor(mpc._assemble_opt_p(np.zeros(mpc.model.n_x)),
-                           dtype=mpc._dtype).expand(2, -1).clone()
+    bare, _ = mpc._make_kkt_backend("condensed", 1e-8, 1, GraphCache())
+    pvec = _pvecs(mpc, np.zeros((2, mpc.model.n_x)))
     sig = torch.ones_like(sol.w)
     points = [(sol.w * (1 + 1e-2 * k), sol.lam * (1 - 0.1 * k))
               for k in range(4)]
@@ -270,36 +304,128 @@ def test_prepare_oracles_capture_on_second_sight_and_replay_after(
     assert float((outs[3][0] - outs[2][0]).abs().max()) > 1e-6
 
 
-def test_solver_and_backend_evaluate_through_one_cache(cstr_cpu,
+def _pvecs(mpc, x0s):
+    """The batched entry's parameter vectors of the states ``x0s``."""
+    pvec = mpc._tensor(mpc._assemble_opt_p(np.zeros(mpc.model.n_x)))
+    pvec = pvec.expand(len(x0s), -1).clone()
+    pvec[:, mpc._p_sl["x0"]] = mpc._tensor(x0s)
+    return pvec
+
+
+def _mpc_setup(cstr, monkeypatch):
+    """``MPC._create_solver``, which ``MPC.setup`` calls: the controller's
+    own solver (full-featured, at tolerance 1e-3) on the cold batch."""
+    mpc, x0s, w0, _ = cstr
+    monkeypatch.setattr(mpc.settings, "solver_tol", 1e-3)
+    mpc._create_solver()
+    solve = mpc._solve_raw
+    return solve, lambda: solve(mpc._tensor(w0), _pvecs(mpc, x0s))
+
+
+def _batch_entry(cstr, monkeypatch):
+    """``make_batch_solver`` in throughput mode, one cold call."""
+    mpc, x0s, w0, _ = cstr
+    solve = batch_mod.make_batch_solver(mpc, tol=1e-3, max_iter=60,
+                                        throughput_mode=True)
+    return solve.ipm, lambda: solve(x0s, w0)[0]
+
+
+def _branch_and_bound(cstr, monkeypatch):
+    """``BranchAndBound``: one frontier expansion of two nodes below the
+    cold batch's first solution, under the root's bounds and with the
+    first feed rate's lower bound raised to the middle of its box."""
+    from dompc_tpu_torch.solver.minlp import BranchAndBound
+    mpc, x0s, _, root = cstr
+    idx = mpc.layout.idx(("u", 0, 0))
+    bnb = BranchAndBound(mpc, idx, np.ones(len(idx)), tol=1e-3, max_iter=60)
+    lb, ub = bnb._lb0, bnb._ub0
+    lbs, ubs = np.stack([lb, lb]), np.stack([ub, ub])
+    lbs[1, idx[0]] = 0.5 * (lb[idx[0]] + ub[idx[0]])
+
+    def row(x):
+        return x[0].numpy()
+    return bnb._solve, lambda: bnb._node_solve(
+        row(root.w), _pvecs(mpc, x0s)[0].numpy(), row(root.lam),
+        row(root.zl), row(root.zu), lbs, ubs)
+
+
+def _mhe_setup(cstr, monkeypatch):
+    """``MHE._create_solver``, which ``MHE.setup`` calls: a damped
+    oscillator's stiffness estimated over N = 3 on the bordered band, one
+    step."""
+    import dompc_tpu_torch as tdm
+    from dompc_tpu_torch import sym
+    model = tdm.model.Model("continuous")
+    x = model.set_variable("_x", "x", shape=(2, 1))
+    u = model.set_variable("_u", "u")
+    k = model.set_variable("_p", "k")
+    model.set_meas("x_meas", x[0])
+    model.set_meas("u_meas", u)
+    model.set_rhs("x", sym.vertcat(x[1], -k * x[0] - 0.1 * x[1] + u))
+    model.setup()
+    mhe = tdm.estimator.MHE(model, ["k"])
+    mhe.settings.n_horizon = 3
+    mhe.settings.t_step = 0.1
+    mhe.settings.kkt_solver = "tridiag"
+    mhe.set_default_objective(np.eye(2), np.diag([1.0, 10.0]),
+                              np.array([[1.0]]))
+    mhe.bounds["lower", "_x", "x"] = -5
+    mhe.bounds["upper", "_x", "x"] = 5
+    mhe.set_nl_cons("k_lb", -mhe._p_est["k"] + 0.1, 0)
+    mhe.setup()
+    mhe.x0 = np.array([0.5, 0.0])
+    mhe.p_est0 = 1.0
+    mhe.set_initial_guess()
+
+    def step():
+        mhe.make_step(np.array([[0.45], [0.2]]))
+        return ipm_mod.IPMSolution(*(None,) * 9)._replace(
+            w=torch.as_tensor(mhe.opt_x_num)[None],
+            iterations=torch.tensor([mhe.solver_stats["iter_count"]]),
+            success=torch.tensor([mhe.solver_stats["success"]]))
+    return mhe._solve_raw, step
+
+
+@pytest.mark.parametrize("build", [_mpc_setup, _batch_entry,
+                                   _branch_and_bound, _mhe_setup],
+                         ids=["MPC.setup", "make_batch_solver",
+                              "BranchAndBound", "MHE.setup"])
+def test_solver_and_backend_evaluate_through_one_cache(cstr_cpu, build,
                                                        monkeypatch):
-    """The batched entry hands one cache to its solver and its structured
-    backend: a cold call captures the point evaluations and the three
-    prepare keys there, counts each kind apart (every ``oracle.point`` in
-    ``oracle_graph``, three evaluations a ``kkt.prepare`` in
-    ``prepare_graph``) and answers as the bare solver does."""
-    mpc, x0s, w0, want = cstr_cpu
+    """Every way to build a solver (``Optimizer._make_solver``) makes one
+    cache, the solver's ``graphs``, and its structured backend evaluates
+    the three prepare keys there: a cold call captures the point
+    evaluations and the prepare keys in it, counts each kind apart (every
+    ``oracle.point`` in ``oracle_graph``, three evaluations a
+    ``kkt.prepare`` in ``prepare_graph``) and answers as the bare solver
+    does.  The MHE's backend evaluates its derivatives eagerly, outside
+    the cache."""
+    want = build(cstr_cpu, monkeypatch)[1]()
     made = []
 
     def cache():
         made.append(GraphCache(capture=_fake_capture([]), device_type="cpu"))
         return made[-1]
-    monkeypatch.setattr(batch_mod, "GraphCache", cache)
-    solve = batch_mod.make_batch_solver(mpc, tol=1e-3, max_iter=60,
-                                        throughput_mode=True)
+    for mod in (optimizer_mod, ipm_mod):
+        monkeypatch.setattr(mod, "GraphCache", cache)
+    solver, run = build(cstr_cpu, monkeypatch)
     log = _span_log(monkeypatch)
     before, before_point = _counts("prepare_graph"), _counts()
-    got, _ = solve(x0s, w0)
+    got = run()
     prepares = sum(1 for name, _ in log if name == "kkt.prepare")
     points = sum(1 for name, _ in log if name == "oracle.point")
-    assert len(made) == 1 and solve.ipm.graphs is made[0]
+    assert len(made) == 1 and solver.graphs is made[0]
     assert prepares > 3
-    assert _delta(before, "prepare_graph") == dict(
-        captures=3, replays=3 * (prepares - 2), eager=3, failures=0)
+    replays = 0 if build is _mhe_setup else 3 * (prepares - 2)
+    assert _delta(before, "prepare_graph") == (
+        dict(captures=0, replays=0, eager=0, failures=0)
+        if build is _mhe_setup
+        else dict(captures=3, replays=replays, eager=3, failures=0))
     point = _delta(before_point)
     assert point["failures"] == 0 and point["captures"] >= 3
     assert sum(point.values()) == points
-    assert sum(1 for name, _ in log if name == "kkt.replay") \
-        == 3 * (prepares - 2)
+    assert sum(1 for name, _ in log if name == "kkt.replay") == replays
     assert bool(got.success.all())
     assert torch.equal(got.iterations, want.iterations)
+    assert torch.equal(got.success, want.success)
     torch.testing.assert_close(got.w, want.w, rtol=0, atol=0)
